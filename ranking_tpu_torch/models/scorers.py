@@ -1,0 +1,95 @@
+"""The DNN scorer and the top-level ranking model.
+
+The port's copy of ``DNNScorer`` and ``RankingModel`` from
+``ranking_tpu/models/scorers.py`` (the reference's
+tensorflow_ranking/python/keras/model.py), as ``nn.Module``s mapping
+``(context, examples, mask) -> logits [B, L]``. Eval only: ``training=True``
+raises until the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ranking_tpu_torch.models import layers as layers_lib
+from ranking_tpu_torch.utils import fns
+
+Tensor = torch.Tensor
+FeatureDict = Dict[str, Tensor]
+
+
+class DNNScorer(nn.Module):
+  """Univariate feed-forward scorer (keras/model.py:780-817).
+
+  Each document is scored independently: features are concatenated
+  (context broadcast over the list), flattened to ``[B*L, F]``, scored by
+  a tower, and restored to masked ``[B, L]`` logits. ``in_features`` is
+  the width of that concatenation. In eval, batch norm reads its running
+  statistics, which do not couple rows, so no circular padding is needed
+  (the JAX package skips it in eval too).
+  """
+
+  def __init__(
+      self,
+      hidden_layer_dims: Sequence[int],
+      in_features: int,
+      output_units: int = 1,
+      activation: str = 'relu',
+      input_batch_norm: bool = False,
+      use_batch_norm: bool = True,
+      batch_norm_momentum: float = 0.999,
+      dropout: float = 0.5,
+      kernel_init: str = 'lecun_normal',
+      generator: Optional[torch.Generator] = None,
+  ):
+    super().__init__()
+    self.output_units = output_units
+    self.tower = layers_lib.Tower(
+        in_features, hidden_layer_dims, output_units=output_units,
+        activation=activation, input_batch_norm=input_batch_norm,
+        use_batch_norm=use_batch_norm,
+        batch_norm_momentum=batch_norm_momentum, dropout=dropout,
+        kernel_init=kernel_init, generator=generator)
+
+  def forward(self, context: FeatureDict, examples: FeatureDict,
+              mask: Tensor, training: bool = False) -> Tensor:
+    if training:
+      raise NotImplementedError(layers_lib.TRAINING_NOT_PORTED)
+    batch, list_size = mask.shape
+    concat = layers_lib.concat_features(context, examples, mask,
+                                        circular_padding=False)
+    scores = self.tower(concat.reshape(batch * list_size, -1))
+    if self.output_units == 1:
+      return layers_lib.restore_list(scores, mask)
+    logits = scores.reshape(batch, list_size, self.output_units)
+    return torch.where(mask[:, :, None], logits, layers_lib.PADDING_LOGIT)
+
+
+class RankingModel(nn.Module):
+  """Top-level model: optional feature transform + scorer.
+
+  ``transform_name='log1p'`` applies sign(x)·log1p(|x|) to floating
+  features only (keras/model.py:552-665); integer ids pass untouched.
+  """
+
+  def __init__(self, scorer: nn.Module, transform_name: str = 'none'):
+    super().__init__()
+    if transform_name not in ('none', 'log1p'):
+      raise ValueError(f"transform_name must be 'none' or 'log1p', got "
+                       f'{transform_name!r}')
+    self.scorer = scorer
+    self.transform_name = transform_name
+
+  def _transform(self, t: Tensor) -> Tensor:
+    if self.transform_name == 'log1p' and t.is_floating_point():
+      return fns.symmetric_log1p(t)
+    return t
+
+  def forward(self, context: FeatureDict, examples: FeatureDict,
+              mask: Tensor, training: bool = False) -> Tensor:
+    context = {k: self._transform(v) for k, v in context.items()}
+    examples = {k: self._transform(v) for k, v in examples.items()}
+    return self.scorer(context, examples, mask, training=training)

@@ -1,0 +1,197 @@
+"""Masking-aware list algebra on padded ``[batch, list_size]`` tensors.
+
+The port's copy of the parts of ``ranking_tpu/utils/list_ops.py`` that the
+eval path uses (the reference's tensorflow_ranking/python/utils.py). The
+data model is the framework's: labels ``[B, L]`` padded with -1.0 (invalid
+<=> label < 0), scores ``[B, L]``, example features ``[B, L, F]`` and an
+optional boolean ``mask [B, L]``.
+
+Sorting is deterministic: equal scores keep their position (stable
+descending order) and invalid items go last. Random tie-breaking belongs
+to the training path and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+
+Tensor = torch.Tensor
+
+_SORT_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def shared_sort_scope():
+  """Share one full sort order across ``sort_by_scores`` calls.
+
+  Inside this scope, every ``sort_by_scores(scores, ..., mask=mask)`` with
+  the same (scores, mask, feature) tensor objects sorts the full list
+  ONCE and serves each ``topn`` as a ``[:, :topn]`` slice. The order is a
+  function of (scores, mask) only and full-sort-then-slice equals a direct
+  stable top-k, so results are identical to the unscoped calls.
+
+  The eval step wraps its metric loop in this scope: the default suite
+  (NDCG@1/5/10/full + MRR) otherwise sorts the same scores five times.
+  The cache is keyed by ``id()`` and holds references to its operands,
+  which pins the ids for the life of the scope.
+  """
+  prev = getattr(_SORT_SCOPE, 'cache', None)
+  _SORT_SCOPE.cache = {}
+  try:
+    yield
+  finally:
+    _SORT_SCOPE.cache = prev
+
+
+def shared_sort_cache() -> Optional[dict]:
+  """The active shared_sort_scope cache (None outside a scope). Other
+  modules may intern derived tensors here (metric input preparation) so
+  identical derivations share one tensor and thus one sort."""
+  return getattr(_SORT_SCOPE, 'cache', None)
+
+
+def is_label_valid(labels: Tensor) -> Tensor:
+  """Boolean validity mask: an item is valid iff its label is >= 0."""
+  return labels >= 0.0
+
+
+def _kernel_sort_ok(scores: Tensor, features_list: Sequence[Tensor]) -> bool:
+  """Whether the CUDA sort kernel takes this call.
+
+  The JAX package's dispatch rule (``_pallas_sort_ok``), for the card:
+  scores on a CUDA device, a list size within the kernel's shared-memory
+  domain, and 2-D floating channels. Channels travel as float32 through
+  the kernel, exact for floats but not for integer ids above 2^24, so
+  integer channels (e.g. ``sorted_ranks``' positions) take the plain path.
+  On the CPU every call takes the plain path.
+  """
+  return (scores.device.type == 'cuda'
+          and scores.shape[1] <= cuda_sort.MAX_LIST_SIZE
+          and all(f.ndim == 2 and f.is_floating_point()
+                  for f in features_list))
+
+
+def sort_by_scores(
+    scores: Tensor,
+    features_list: Sequence[Tensor],
+    topn: Optional[int] = None,
+    mask: Optional[Tensor] = None,
+) -> List[Tensor]:
+  """Sorts each feature tensor per list by descending ``scores``.
+
+  Args:
+    scores: ``[B, L]`` float scores.
+    features_list: tensors of shape ``[B, L]`` or ``[B, L, ...]``.
+    topn: cutoff; output lists have length ``min(topn, L)``.
+    mask: optional ``[B, L]`` bool; invalid entries are pushed to the end.
+
+  Returns:
+    List of tensors shaped ``[B, topn, ...]`` sorted by score.
+  """
+  scores = scores.to(torch.float32)
+  list_size = scores.shape[1]
+  topn = list_size if topn is None else min(topn, list_size)
+
+  cache = getattr(_SORT_SCOPE, 'cache', None)
+  if cache is not None:
+    # Cache the FULL sorted channel per (scores, mask, feature) and serve
+    # every topn as a slice; all missing channels ride one sort.
+    misses = {}
+    for f in features_list:
+      fk = (id(scores), id(mask), id(f))
+      if fk not in cache and fk not in misses:
+        misses[fk] = f
+    if misses:
+      _SORT_SCOPE.cache = None  # the full sort itself runs uncached
+      try:
+        fulls = sort_by_scores(scores, list(misses.values()),
+                               topn=list_size, mask=mask)
+      finally:
+        _SORT_SCOPE.cache = cache
+      for (fk, f), full in zip(misses.items(), fulls):
+        # Holding refs to the operands pins their ids for the scope.
+        cache[fk] = (scores, mask, f, full)
+    return [cache[(id(scores), id(mask), id(f))][3][:, :topn]
+            for f in features_list]
+
+  if _kernel_sort_ok(scores, features_list):
+    out = cuda_sort.sort_by_scores(scores, features_list, topn=topn,
+                                   mask=mask)
+    return [o.to(f.dtype) for o, f in zip(out, features_list)]
+
+  order = cuda_sort.sort_order(scores, mask)[:, :topn]
+  return [gather_per_row(f, order) for f in features_list]
+
+
+def sorted_ranks(scores: Tensor) -> Tensor:
+  """1-based int32 rank of each item when its list is sorted by descending
+  score; ties are broken by position. ``[[1.0, 3.5, 2.1]]`` -> ``[[3, 1,
+  2]]``."""
+  batch, list_size = scores.shape
+  positions = torch.arange(list_size, device=scores.device).expand(
+      batch, list_size)
+  sorted_positions = sort_by_scores(scores, [positions])[0]
+  return (torch.argsort(sorted_positions, dim=1, stable=True) + 1).to(
+      torch.int32)
+
+
+def organize_valid_indices(is_valid: Tensor) -> Tensor:
+  """Per-row int64 indices placing valid items first, in order.
+
+  Scatters each valid index to its compacted position (cumsum) and each
+  invalid index after the valid run: O(B L), no sort.
+  """
+  batch, list_size = is_valid.shape
+  valid = is_valid.to(torch.int64)
+  positions = torch.cumsum(valid, dim=1) - 1
+  num_valid = positions[:, -1:] + 1
+  inv_positions = num_valid - 1 + torch.cumsum(1 - valid, dim=1)
+  dest = torch.where(is_valid, positions, inv_positions)
+  src = torch.arange(list_size, device=is_valid.device).expand(
+      batch, list_size)
+  return torch.zeros_like(dest).scatter_(1, dest, src)
+
+
+def padded_gather_indices(is_valid: Tensor) -> Tuple[Tensor, Tensor]:
+  """Circularly pads invalid slots with valid indices.
+
+  Returns:
+    (indices ``[B, L]`` int64, mask ``[B, L]`` bool). ``indices[b, k]``
+    indexes into row ``b``; the first ``n_valid`` point at valid items in
+    order, the rest wrap around circularly.
+  """
+  batch, list_size = is_valid.shape
+  num_valid = torch.sum(is_valid.to(torch.int64), dim=1, keepdim=True)
+  positions = torch.arange(list_size, device=is_valid.device).expand(
+      batch, list_size)
+  mask = positions < num_valid
+  circular = torch.remainder(positions, torch.clamp(num_valid, min=1))
+  valid_first = organize_valid_indices(is_valid)
+  return torch.gather(valid_first, 1, circular), mask
+
+
+def gather_per_row(inputs: Tensor, indices: Tensor) -> Tensor:
+  """Per-row gather: ``out[b, k] = inputs[b, indices[b, k]]`` (2-D or 3-D+)."""
+  indices = indices.to(torch.int64)
+  extra = inputs.ndim - indices.ndim
+  if extra:
+    indices = indices.reshape(indices.shape + (1,) * extra).expand(
+        indices.shape + inputs.shape[2:])
+  return torch.gather(inputs, 1, indices)
+
+
+def reshape_to_2d(tensor: Tensor) -> Tensor:
+  """Converts a tensor to 2-D by squeezing trailing dims / expanding 1-D."""
+  if tensor.ndim == 2:
+    return tensor
+  if tensor.ndim >= 3:
+    return tensor.reshape(tensor.shape[:2])
+  while tensor.ndim < 2:
+    tensor = tensor[..., None]
+  return tensor

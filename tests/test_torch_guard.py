@@ -1,0 +1,45 @@
+"""The PyTorch port stands alone and runs on the card unless told not to."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ranking_tpu_torch.models import scorers
+from ranking_tpu_torch.pipeline import serving
+from ranking_tpu_torch.train import steps
+
+_CHECK = """
+import pkgutil, sys, importlib
+import ranking_tpu_torch
+for mod in pkgutil.walk_packages(ranking_tpu_torch.__path__,
+                                 'ranking_tpu_torch.'):
+  importlib.import_module(mod.name)
+import ranking_tpu_torch.pipeline.serving
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')
+             or m == 'ranking_tpu' or m.startswith('ranking_tpu.'))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  proc = subprocess.run([sys.executable, '-c', _CHECK], capture_output=True,
+                        text=True, timeout=120, cwd=repo)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_refuse_a_missing_card(monkeypatch):
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  model = scorers.RankingModel(scorers.DNNScorer((4,), in_features=3))
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    serving.Predictor(model)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    serving.evaluate_dataset(model, None, [])
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    steps.make_eval_step({})
+  serving.Predictor(model, device='cpu')  # the CPU when asked
