@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving and eval path on one CUDA card.
+"""Drives the PyTorch port's serving, eval and training paths on one CUDA
+card.
 
     python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero before the last line is printed):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the sort kernel from ``ranking_tpu_torch/ops/cuda/csrc``;
+2. build: compiles the three kernel sources of
+   ``ranking_tpu_torch/ops/cuda/csrc`` side by side (the sort, the fused
+   masked-BN tower's forward and its backward);
 3. kernel vs plain: the CUDA sort against ``sorted_values_and_ranks_reference``
    on the card, required bitwise equal (ranks and sorted values), at the
    flagship shape (B=128, L=200, K=2, topn 1/5/10/200), with score ties,
    an all-invalid row and -inf scores, L=37, L at the top of the kernel's
-   domain, and B=1;
+   domain, and B=1. Then the five fused masked-BN functions
+   (``ops/cuda/fused_bn.py``) against their plain versions at the flagship
+   widths 136-1024-512-256, in float32 and bfloat16, at N=25600 and N=700
+   with a ragged mask and at N=700 with an all-ones and an all-zero mask
+   (tolerances at ``FUSED_TOL``: these are sums over up to 25600 rows in
+   another order, so bitwise equality is not expected), and the whole
+   ``fused_bn_mlp`` (outputs, means, vars, all gradients) against autograd
+   through ``reference_bn_mlp`` on the card and in float64 on the CPU;
 4. main path: the flagship model (RankingModel(DNNScorer(1024-512-256),
    'log1p') over 136 float features, random weights and running
    statistics from a seeded ``torch.Generator``) answers
@@ -27,9 +37,25 @@ Phases (any failure exits non-zero before the last line is printed):
    CUDA graph of 20 calls) and as eager time (CUDA events around 100
    calls, host overhead included); the eval step, its forward and a B=128
    serve request (median host clock around a synchronize);
-7. with ``--profile`` only: the kernel's registers and spills from
+7. training main path: the flagship model in train mode (dropout 0,
+   ``input_grad=False``, batch norm, float32, 'log1p'), ``softmax_loss``, Adam
+   1e-3, 8 steps of ``make_train_step`` on a repeated flat-fed batch. The
+   first step's loss, gradients and running statistics are held against
+   the same step with the plain versions forced on the card; the loss must
+   be finite at every step and lower after 8; the launches per step must be
+   3 / 1 / 2 / 0 / 0 for the five functions; the trained model is then
+   evaluated through the eval path;
+8. second path: a one-hidden-layer tower (136 -> 1024) whose input needs a
+   gradient, one forward and backward at N=25600: ``dx0`` and ``dW0``
+   against the plain versions, one launch each of the two first-layer
+   functions;
+9. times of the fused functions (device time from CUDA graph replays, each
+   beside its plain version and its bound) and of a train step (host clock
+   and CUDA events), beside the same step with the fused switch off;
+10. with ``--profile`` only: the kernels' registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
-   busiest kernels of one eval step and one B=128 serve request.
+   busiest kernels of one eval step, one B=128 serve request and one train
+   step.
 
 Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.
@@ -50,6 +76,22 @@ EVAL_BATCHES = 4
 # HBM rate of an H100 SXM (NVIDIA data sheet), for the kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12             # float32 outside the tensor cores
+N_ROWS = B * L                    # 25600 documents in a flagship batch
+TRAIN_STEPS = 8
+# Largest |kernel - plain| allowed, as a share of the largest |plain| value
+# of the same output. float32: both sides sum the same float32 products in
+# another order (up to 25600 rows, 1024 terms). bfloat16: outputs stored as
+# bf16 may differ by one bf16 ulp of the largest value (2^-8, rounded up to
+# 2^-7); float32 sums of bf16-rounded operands see an operand rounded the
+# other way now and then.
+FUSED_TOL = {'float32': {'stored': 1e-5, 'summed': 1e-5},
+             'bfloat16': {'stored': 2.0 ** -7, 'summed': 2e-3}}
+# The whole op against autograd through another formulation of the same
+# function: a handful of ReLU gates whose pre-activation is within rounding
+# of 0 open on one side only, and each moves a gradient entry by one row's
+# whole contribution. So the error is held in the Frobenius norm, and the
+# largest single entry only loosely.
+OP_TOL_NORM, OP_TOL_MAX = 2e-3, 5e-2
 
 
 def _fail(msg):
@@ -215,6 +257,422 @@ def _metric_fns():
   return fns
 
 
+def _rel_err(got, want):
+  """(largest |got - want|, that as a share of the largest |want|)."""
+  import torch
+  got, want = got.to(torch.float32), want.to(torch.float32)
+  if got.shape != want.shape:
+    _fail(f'shape {tuple(got.shape)} != {tuple(want.shape)}')
+  err = (got - want).abs().nan_to_num(nan=math.inf).max().item()
+  return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def _fused_case(gen, n, mask_kind, act, dims=(F,) + HIDDEN):
+  """Inputs of every fused function at one tower shape: a seeded tower and
+  batch, the hidden activations and folds of a forward chain (through the
+  plain versions) and random cotangents of the right scale."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  dev = torch.device('cuda')
+  rnd = lambda *shape, scale=1.0: (  # noqa: E731
+      torch.randn(*shape, generator=gen) * scale).to(dev)
+  x = rnd(n, dims[0])
+  mask = {'ragged': (torch.rand(n, generator=gen) > 0.3).float(),
+          'ones': torch.ones(n), 'zeros': torch.zeros(n)}[mask_kind].to(dev)
+  count = mask.sum().clamp(min=1.0)
+  layers = []
+  h, relu_in = x, False
+  s_in = torch.ones(dims[0], device=dev)
+  t_in = torch.zeros(dims[0], device=dev)
+  with fused_bn.plain_versions():
+    for f_in, f_out in zip(dims[:-1], dims[1:]):
+      w = rnd(f_out, f_in, scale=f_in ** -0.5)
+      b, gamma, beta = rnd(f_out, scale=.1), 1 + rnd(f_out, scale=.1), \
+          rnd(f_out, scale=.1)
+      y, col_sum, col_ssq = fused_bn.layer_forward(
+          h, mask, s_in, t_in, w.t(), b, relu_in=relu_in, act_dtype=act)
+      fold = fused_bn._bn_fold(col_sum, col_ssq, gamma, beta, count, 1e-5)
+      g = rnd(n, f_out).to(act)
+      s1, s2 = fused_bn.bwd_stats(g, y, fold[3], fold[4])
+      _, _, c1, c2, _ = fused_bn._layer_consts(fold, s1, s2, col_sum, count)
+      layers.append(dict(x_in=h, s_in=s_in, t_in=t_in, relu_in=relu_in, w=w,
+                         b=b, y=y, s=fold[3], t=fold[4], g=g, c1=c1, c2=c2))
+      h, s_in, t_in, relu_in = y, fold[3], fold[4], True
+  return dict(x=x, mask=mask, layers=layers, act=act)
+
+
+def _fused_calls(case):
+  """{row name: [(shape label, fn)]}: every call a train step makes of rows
+  2-4 at this case's shapes, and the calls of rows 5 and 6 at layer 0's."""
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  x, mask, act = case['x'], case['mask'], case['act']
+  ls = case['layers']
+  top = len(ls) - 1
+
+  def label(l):
+    return f"{ls[l]['w'].shape[1]}->{ls[l]['w'].shape[0]}"
+
+  def fwd(l):
+    a = ls[l]
+    return lambda: fused_bn.layer_forward(
+        a['x_in'], mask, a['s_in'], a['t_in'], a['w'].t(), a['b'],
+        relu_in=a['relu_in'], act_dtype=act)
+
+  def mats(l, fold):
+    a = ls[l]
+    return lambda: fused_bn.bwd_mats(
+        a['g'], a['y'], mask, a['s'], a['t'], a['c1'], a['c2'], a['x_in'],
+        a['s_in'], a['t_in'], a['w'].t(), relu_in=True, emit_prev_stats=True,
+        x0=x if fold else None, emit_dx=not fold)
+
+  a0, at = ls[0], ls[top]
+  return {
+      'layer_forward': [(label(l), fwd(l)) for l in range(len(ls))],
+      'bwd_stats': [(str(at['y'].shape[1]), lambda: fused_bn.bwd_stats(
+          at['g'], at['y'], at['s'], at['t']))],
+      'bwd_mats': [(label(l) + (' +fold' if l == 1 else ''), mats(l, l == 1))
+                   for l in range(top, 0, -1)],
+      'bwd_dx_only': [(label(0), lambda: fused_bn.bwd_dx_only(
+          a0['g'], a0['y'], mask, a0['s'], a0['t'], a0['c1'], a0['c2'],
+          a0['w'].t()))],
+      'bwd_dw_only': [(label(0), lambda: fused_bn.bwd_dw_only(
+          a0['g'], a0['y'], mask, a0['s'], a0['t'], a0['c1'], a0['c2'],
+          a0['x_in'], a0['s_in'], a0['t_in'], relu_in=False))],
+  }
+
+
+def _fused_bounds(n=N_ROWS, dims=(F,) + HIDDEN):
+  """{row name: [(bound_ms, bound_by)]} for the float32 calls of
+  ``_fused_calls``: each input read once and each output written once over
+  the HBM rate, against the products' operations over the float32 rate."""
+  size = 4  # bytes of a stored activation
+
+  def bound(byte_count, op_count):
+    return max((byte_count / HBM_BYTES_PER_S * 1e3, 'bytes'),
+               (op_count / F32_OPS_PER_S * 1e3, 'operations'))
+
+  f0 = dims[0]
+  out = {'layer_forward': [], 'bwd_mats': []}
+  for f_in, f_out in zip(dims[:-1], dims[1:]):
+    out['layer_forward'].append(bound(
+        n * f_in * size + n * 4 + 4 * (2 * f_in + f_in * f_out + f_out)
+        + n * f_out * size + 8 * f_out, 2 * n * f_in * f_out))
+  top = len(dims) - 2
+  f_top = dims[-1]
+  out['bwd_stats'] = [bound(2 * n * f_top * size + 16 * f_top,
+                            4 * n * f_top)]
+  for l in range(top, 0, -1):
+    f_in, f_out = dims[l], dims[l + 1]
+    fold = l == 1
+    byte_count = (2 * n * f_out * size + n * 4 + 16 * f_out
+                  + n * f_in * size + 8 * f_in + 4 * f_in * f_out  # inputs
+                  + 4 * f_in * f_out + 8 * f_in)                   # dW, s1, s2
+    op_count = 4 * n * f_in * f_out
+    if fold:
+      byte_count += n * f0 * 4 + 2 * 4 * f0 * f_in   # x0 in; A, B out
+      op_count += 4 * n * f0 * f_in
+    else:
+      byte_count += n * f_in * size                  # dx out
+    out['bwd_mats'].append(bound(byte_count, op_count))
+  f1 = dims[1]
+  out['bwd_dx_only'] = [bound(2 * n * f1 * size + n * 4 + 16 * f1
+                              + 4 * f0 * f1 + n * f0 * 4, 2 * n * f0 * f1)]
+  out['bwd_dw_only'] = [bound(2 * n * f1 * size + n * 4 + 16 * f1
+                              + n * f0 * 4 + 8 * f0 + 4 * f0 * f1,
+                              2 * n * f0 * f1)]
+  return out
+
+
+def _check_fused_kernels(gen):
+  """Phase 3b: each fused function against its plain version. Returns
+  {row name: {'float32': (max abs, max rel), 'bfloat16': ...}}."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  # Which outputs are stored in the activation type (the rest are float32
+  # sums).
+  stored = {'layer_forward': (0,), 'bwd_stats': (), 'bwd_mats': (0,),
+            'bwd_dx_only': (), 'bwd_dw_only': ()}
+  worst = {}
+  for act in (torch.float32, torch.bfloat16):
+    name = str(act).split('.')[-1]
+    for n, mask_kind in ((N_ROWS, 'ragged'), (700, 'ragged'), (700, 'ones'),
+                         (700, 'zeros')):
+      case = _fused_case(gen, n, mask_kind, act)
+      for row, calls in _fused_calls(case).items():
+        for shape, fn in calls:
+          got = fn()
+          with fused_bn.plain_versions():
+            want = fn()
+          torch.cuda.synchronize()
+          got, want = ((o,) if isinstance(o, torch.Tensor) else o
+                       for o in (got, want))
+          for i, (g, w) in enumerate(zip(got, want)):
+            if (g is None) != (w is None):
+              _fail(f'{row} {shape}: output {i} missing on one side')
+            if g is None:
+              continue
+            err, rel = _rel_err(g, w)
+            tol = FUSED_TOL[name]['stored' if i in stored[row] else 'summed']
+            if not rel <= tol:
+              _fail(f'{row} {shape} {name} N={n} mask={mask_kind}: output '
+                    f'{i} differs from the plain version by {err} '
+                    f'({rel:.3g} of its largest value; allowed {tol:.3g})')
+            old = worst.setdefault(row, {}).get(name, (0.0, 0.0))
+            worst[row][name] = (max(old[0], err), max(old[1], rel))
+      _log(f'kernel vs plain: fused BN rows 2-6, {name}, N={n}, '
+           f'{mask_kind} mask: within tolerance')
+  return worst
+
+
+def _check_fused_op(gen):
+  """Phase 3c: fused_bn_mlp at the flagship shape against autograd through
+  reference_bn_mlp, on the card in float32 and on the CPU in float64."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  dev = torch.device('cuda')
+  dims = (F,) + HIDDEN
+  x = torch.randn(N_ROWS, F, generator=gen)
+  mask = (torch.rand(N_ROWS, generator=gen) > 0.3).float()
+  cot = torch.randn(N_ROWS, HIDDEN[-1], generator=gen)
+  params = [[torch.randn(o, i, generator=gen) * i ** -0.5
+             for i, o in zip(dims[:-1], dims[1:])],
+            [0.1 * torch.randn(o, generator=gen) for o in HIDDEN],
+            [1 + 0.1 * torch.randn(o, generator=gen) for o in HIDDEN],
+            [0.1 * torch.randn(o, generator=gen) for o in HIDDEN]]
+
+  def run(fn, device, dtype):
+    leaves = [[p.to(device, dtype).requires_grad_() for p in group]
+              for group in params]
+    xd = x.to(device, dtype).requires_grad_()
+    out, means, vars_ = fn(xd, mask.to(device), *leaves)
+    flat = [xd] + [p for group in leaves for p in group]
+    grads = torch.autograd.grad((out * cot.to(device, dtype)).sum(), flat)
+    return [t.detach().to('cpu', torch.float64)
+            for t in (out, *means, *vars_, *grads)]
+
+  got = run(lambda *a: fused_bn.fused_bn_mlp(*a, input_grad=True), dev,
+            torch.float32)
+  refs = {
+      'autograd on the card': run(
+          lambda xd, m, *p: fused_bn.reference_bn_mlp(xd, *p, mask=m), dev,
+          torch.float32),
+      'float64 on the CPU': run(
+          lambda xd, m, *p: fused_bn.reference_bn_mlp(xd, *p, mask=m), 'cpu',
+          torch.float64)}
+  n_fwd = 1 + 2 * len(HIDDEN)
+  for name, want in refs.items():
+    worst_fwd = worst_norm = worst_max = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+      scale = max(w.abs().max().item(), 1e-30)
+      err = (g - w).abs().max().item() / scale
+      if i < n_fwd:
+        worst_fwd = max(worst_fwd, err)
+        continue
+      if scale < 1e-2:  # bias gradients: exactly 0 in theory, noise here
+        if (g - w).abs().max().item() > 1e-2:
+          _fail(f'fused op vs {name}: a zero gradient is off by more than '
+                '1e-2')
+        continue
+      worst_norm = max(worst_norm, ((g - w).norm() / w.norm()).item())
+      worst_max = max(worst_max, err)
+    if not (worst_fwd <= 1e-4 and worst_norm <= OP_TOL_NORM
+            and worst_max <= OP_TOL_MAX):
+      _fail(f'fused op vs {name}: outputs off by {worst_fwd:.3g} (allowed '
+            f'1e-4), gradients by {worst_norm:.3g} in norm (allowed '
+            f'{OP_TOL_NORM}) and {worst_max:.3g} at most (allowed '
+            f'{OP_TOL_MAX})')
+    _log(f'fused op vs {name}: outputs within {worst_fwd:.3g}, gradients '
+         f'within {worst_norm:.3g} in norm, {worst_max:.3g} at most')
+
+
+def _train_model(gen, hidden=HIDDEN):
+  from ranking_tpu_torch.models import scorers
+  return scorers.RankingModel(
+      scorers.DNNScorer(hidden, in_features=F, dropout=0.0, input_grad=False,
+                        generator=gen), transform_name='log1p')
+
+
+def _launch_counts():
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  return [fn.launches for fn in fused_bn.KERNEL_WRAPPERS]
+
+
+def _train_main_path(gen, eval_batches, fns):
+  """Phase 7. Returns (launch counts of the run, trained state, step fn,
+  batch)."""
+  import copy
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  from ranking_tpu_torch.pipeline import serving
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  model = _train_model(gen)
+  twin = copy.deepcopy(model)
+  batch = dataset.flatten_examples(_make_batch(gen, B))
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  step = steps.make_train_step(loss_fn, device='cuda')
+
+  # The main path: counts start at 0 here.
+  fused_bn.reset_launches()
+  state = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                       device='cuda')
+  losses = []
+  first_grads = None
+  for i in range(TRAIN_STEPS):
+    state, metrics = step(state, batch)
+    losses.append(metrics['loss'].item())
+    if i == 0:
+      first_grads = {k: p.grad.clone()
+                     for k, p in state.model.named_parameters()}
+      first_stats = {k: v.clone() for k, v in state.model.state_dict().items()
+                     if 'running' in k}
+  trained_eval = serving.evaluate_dataset(state.model, None, eval_batches,
+                                          metric_fns=fns, device='cuda')
+  counts = _launch_counts()
+  torch.cuda.synchronize()
+
+  if not all(math.isfinite(v) for v in losses):
+    _fail(f'train: a loss is not finite: {losses}')
+  if not losses[-1] < losses[0]:
+    _fail(f'train: the loss did not fall in {TRAIN_STEPS} steps on a '
+          f'repeated batch: {losses}')
+  per_step = [c / TRAIN_STEPS for c in counts]
+  if per_step != [3, 1, 2, 0, 0]:
+    _fail(f'train: launches per step {per_step} != [3, 1, 2, 0, 0] for '
+          f'rows 2-6')
+  for name, value in trained_eval.items():
+    if not 0.0 <= value <= 1.0:
+      _fail(f'eval of the trained model: {name} = {value} outside [0, 1]')
+  _log(f'train: {TRAIN_STEPS} steps at B={B}, L={L}, F={F}, loss '
+       f'{losses[0]:.6f} -> {losses[-1]:.6f}; launches per step {per_step}; '
+       'trained model eval: '
+       + ', '.join(f'{k} {v:.4f}' for k, v in trained_eval.items()))
+
+  # The same first step through the plain versions, on the card.
+  twin_state = state_lib.create_train_state(twin, state_lib.adam(1e-3),
+                                            device='cuda')
+  before = _launch_counts()
+  with fused_bn.plain_versions():
+    twin_state, twin_metrics = step(twin_state, batch)
+  if _launch_counts() != before:
+    _fail('the plain-version step launched a kernel')
+  loss_err = abs(twin_metrics['loss'].item() - losses[0])
+  if loss_err > 1e-5 * abs(losses[0]):
+    _fail(f'train: first loss {losses[0]} vs plain versions '
+          f'{twin_metrics["loss"].item()}')
+  worst_norm = worst_max = 0.0
+  for k, p in twin_state.model.named_parameters():
+    g, w = first_grads[k], p.grad
+    scale = w.abs().max().item()
+    if scale < 1e-6:   # zero in theory (biases in front of a batch norm)
+      if (g - w).abs().max().item() > 1e-6:
+        _fail(f'train: zero gradient {k} off by more than 1e-6')
+      continue
+    worst_norm = max(worst_norm, ((g - w).norm() / w.norm()).item())
+    worst_max = max(worst_max, (g - w).abs().max().item() / scale)
+  if worst_norm > OP_TOL_NORM or worst_max > OP_TOL_MAX:
+    _fail(f'train: first-step gradients differ from the plain versions by '
+          f'{worst_norm:.3g} in norm, {worst_max:.3g} at most')
+  stat_err = 0.0
+  for k, v in twin_state.model.state_dict().items():
+    if 'running' in k:
+      stat_err = max(stat_err, _rel_err(first_stats[k], v)[1])
+  if stat_err > 1e-5:
+    _fail(f'train: running statistics differ from the plain versions by '
+          f'{stat_err:.3g}')
+  _log(f'train: first step vs plain versions on the card: loss within '
+       f'{loss_err:.3g}, gradients within {worst_norm:.3g} in norm and '
+       f'{worst_max:.3g} at most, running statistics within {stat_err:.3g}')
+  return counts, state, step, batch
+
+
+def _second_path(gen):
+  """Phase 8: rows 5 and 6 through the Function. Returns their launches
+  and largest errors."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  dev = torch.device('cuda')
+  f1 = HIDDEN[0]
+  x = torch.randn(N_ROWS, F, generator=gen).to(dev)
+  mask = (torch.rand(N_ROWS, generator=gen) > 0.3).to(dev)
+  cot = torch.randn(N_ROWS, f1, generator=gen).to(dev)
+  params = [(torch.randn(f1, F, generator=gen) * F ** -0.5).to(dev),
+            (0.1 * torch.randn(f1, generator=gen)).to(dev),
+            (1 + 0.1 * torch.randn(f1, generator=gen)).to(dev),
+            (0.1 * torch.randn(f1, generator=gen)).to(dev)]
+
+  def run():
+    xd = x.clone().requires_grad_()
+    leaves = [p.clone().requires_grad_() for p in params]
+    out, _, _ = fused_bn.fused_bn_mlp(xd, mask, *([p] for p in leaves),
+                                      input_grad=True)
+    return torch.autograd.grad((out * cot).sum(), [xd, leaves[0]])
+
+  fused_bn.reset_launches()
+  dx0, dw0 = run()
+  counts = _launch_counts()
+  with fused_bn.plain_versions():
+    want_dx0, want_dw0 = run()
+  torch.cuda.synchronize()
+  if counts != [1, 1, 0, 1, 1]:
+    _fail(f'second path: launches {counts} != [1, 1, 0, 1, 1] for rows 2-6')
+  errs = {'bwd_dx_only': _rel_err(dx0, want_dx0),
+          'bwd_dw_only': _rel_err(dw0, want_dw0)}
+  for name, (err, rel) in errs.items():
+    # The forward's y differs in its last bits between the two runs, so a
+    # gate may flip: the whole-op tolerance applies, not the kernel's.
+    if rel > OP_TOL_MAX:
+      _fail(f'second path: {name} off by {err} ({rel:.3g} of its largest)')
+  _log(f'second path: one-layer tower {F}->{f1} with an input gradient: '
+       + ', '.join(f'{k} within {v[1]:.3g}' for k, v in errs.items())
+       + f'; launches {counts}')
+  return {'bwd_dx_only': counts[3], 'bwd_dw_only': counts[4]}
+
+
+def _time_fused(gen):
+  """Phase 9a: {row name: {'ms', 'plain_ms', 'ms_by_shape', ...}} at the
+  flagship shapes, float32; device time per call from CUDA graph replays."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  case = _fused_case(gen, N_ROWS, 'ragged', torch.float32)
+  bounds = _fused_bounds()
+  out = {}
+  for row, calls in _fused_calls(case).items():
+    by_shape, plain_by_shape = {}, {}
+    for shape, fn in calls:
+      by_shape[shape] = _graph_ms(fn, calls=5, replays=10)
+      with fused_bn.plain_versions():
+        plain_by_shape[shape] = _graph_ms(fn, calls=5, replays=10)
+    out[row] = {'ms': sum(by_shape.values()),
+                'plain_ms': sum(plain_by_shape.values()),
+                'bound_ms': sum(b for b, _ in bounds[row]),
+                'bound_by': max(bounds[row])[1],  # of the largest call
+                'ms_by_shape': by_shape, 'plain_ms_by_shape': plain_by_shape,
+                'bound_ms_by_shape': dict(zip(by_shape,
+                                              (b for b, _ in bounds[row])))}
+  return out
+
+
+def _time_train_step(state, step, batch):
+  """Phase 9b: a train step's host and device time, fused and unfused."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  dev_batch = batch.to(torch.device('cuda'))
+  fn = lambda: step(state, dev_batch)  # noqa: E731
+  out = {}
+  for name, switch in (('fused', None), ('unfused', False)):
+    fused_bn.set_enabled(switch)
+    try:
+      out[f'train_step_{name}_host_ms'] = _host_ms(fn, 20)
+      out[f'train_step_{name}_device_ms'] = _event_ms(fn, 20, warmup=3)
+    finally:
+      fused_bn.set_enabled(None)
+  out['train_lists_per_s'] = B / out['train_step_fused_host_ms'] * 1e3
+  return out, fn
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -224,6 +682,7 @@ def main():
   from ranking_tpu_torch.data import dataset
   from ranking_tpu_torch.models import layers
   from ranking_tpu_torch.ops.cuda import build
+  from ranking_tpu_torch.ops.cuda import fused_bn
   from ranking_tpu_torch.ops.cuda import sort as cuda_sort
   from ranking_tpu_torch.pipeline import serving
   from ranking_tpu_torch.train import steps
@@ -238,11 +697,15 @@ def main():
   _log(f'device: {kind} ({torch.cuda.device_count()} visible), torch '
        f'{torch.__version__}, CUDA {torch.version.cuda}')
 
-  # Phase 2: build.
+  # Phase 2: build, one nvcc per source, side by side.
   t0 = time.perf_counter()
+  build.compile_libraries(['sort', 'fused_bn_fwd', 'fused_bn_bwd'])
   cuda_sort._kernel()
-  _log(f'build: sort kernel in {time.perf_counter() - t0:.2f} s '
-       f'({build.library_path("sort")})')
+  fused_bn.build_kernels()
+  build_s = time.perf_counter() - t0
+  _log(f'build: 3 kernel sources in {build_s:.2f} s ('
+       + ', '.join(f'{k} {v:.1f} s' for k, v in build.BUILD_SECONDS.items())
+       + ')')
 
   # Phase 3: kernel vs plain on the card, bitwise.
   gen = torch.Generator().manual_seed(SEED)
@@ -270,6 +733,10 @@ def main():
         _fail(f'sort case {name}: kernel != plain version (max |diff| '
               f'{err})')
     _log(f'kernel vs plain: {name} (B={b}, L={l}, K={k}, topn={topn}) equal')
+
+  # Phase 3b, 3c: the fused masked-BN functions and the whole op.
+  fused_errs = _check_fused_kernels(gen)
+  _check_fused_op(gen)
 
   # Phase 4: the main path. Counts start at 0 here.
   model = _flagship_model(gen)
@@ -371,7 +838,15 @@ def main():
     forward_ms = _host_ms(lambda: predictor.model(
         restored.context, restored.examples, restored.mask), 50)
   serve_ms = _host_ms(lambda: predictor.score_batch(requests[-1]), 30)
+  # Phases 7-9: training, the second path, and their times.
+  train_counts, state, train_step, train_batch = _train_main_path(
+      gen, eval_batches, fns)
+  second_counts = _second_path(gen)
+  fused_times = _time_fused(gen)
+  train_times, train_fn = _time_train_step(state, train_step, train_batch)
   timings = {
+      'build_s': build_s,
+      'fused': fused_times, **train_times,
       'sort_kernel_ms': kernel_ms, 'sort_plain_ms': plain_ms,
       'sort_library_ms': library_ms, 'sort_bound_ms': bound_ms,
       'sort_eager_ms': sort_eager_ms,
@@ -385,15 +860,18 @@ def main():
   if '--profile' in sys.argv[1:]:
     # Phase 7 (optional): the kernel's resources and where the device
     # time of an eval step and a serve request goes.
-    log = build.compile_library('sort', ('-Xptxas', '-v')) + '.log'
-    with open(log) as f:
-      _log('ptxas: ' + ' | '.join(line.strip() for line in f
-                                  if 'registers' in line or 'spill' in line))
+    for source in ('sort', 'fused_bn_fwd', 'fused_bn_bwd'):
+      log = build.compile_library(source, ('-Xptxas', '-v')) + '.log'
+      with open(log) as f:
+        _log(f'ptxas {source}: ' + ' | '.join(
+            line.strip()[:160] for line in f
+            if 'registers' in line or 'spill' in line))
     for name, fn, host_ms in (
         ('eval_step', lambda: step(predictor.model, dev_batch, states),
          eval_step_ms),
         ('serve_b128', lambda: predictor.score_batch(requests[-1]),
-         serve_ms)):
+         serve_ms),
+        ('train_step', train_fn, train_times['train_step_fused_host_ms'])):
       prof = _profile(fn)
       prof['host_ms'] = host_ms
       prof['device_idle_share'] = 1.0 - prof['device_ms'] / host_ms
@@ -407,6 +885,30 @@ def main():
       'launches': launches, 'max_abs_err': max_abs_err, 'check': 'bitwise',
       'ms': kernel_ms, 'eager_ms': sort_eager_ms['kernel'], 'plain_ms': plain_ms, 'bound_ms': bound_ms,
       'bound_by': bound_by, 'library_ms': library_ms}]
+  # Rows 2-6. `ms`, `plain_ms` and `bound_ms` add up the calls that one
+  # train step makes of the function (three layer shapes for the forward,
+  # two for the backward products); `ms_by_shape` splits them. No single
+  # PyTorch call computes what one of these functions computes, so there
+  # is no library time.
+  replaces = {'layer_forward': 155, 'bwd_stats': 226, 'bwd_mats': 356,
+              'bwd_dx_only': 433, 'bwd_dw_only': 489}
+  launches_of = dict(zip(replaces, train_counts))
+  launches_of.update(second_counts)
+  for name, line in replaces.items():
+    t = fused_times[name]
+    kernels.append({
+        'name': name, 'route': 'cuda',
+        'source': 'ranking_tpu_torch/ops/cuda/csrc/fused_bn_'
+                  + ('fwd.cu' if name == 'layer_forward' else 'bwd.cu'),
+        'replaces': f'ranking_tpu/ops/pallas/fused_bn.py:{line}',
+        'launches': launches_of[name],
+        'max_abs_err': fused_errs[name]['float32'][0],
+        'max_rel_err': fused_errs[name]['float32'][1],
+        'max_rel_err_bf16': fused_errs[name]['bfloat16'][1],
+        'check': 'share of the largest value, FUSED_TOL',
+        'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': t['bound_by'], 'library_ms': None,
+        'ms_by_shape': t['ms_by_shape']})
   print(card)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

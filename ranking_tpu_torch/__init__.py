@@ -2,10 +2,16 @@
 
 The port grows slice by slice beside the JAX package, which stays the
 reference it is tested against. It imports ``torch`` and never JAX or
-anything of ``ranking_tpu``. This slice holds the serving and eval path:
-``pipeline.serving.Predictor.score_batch`` and ``evaluate_dataset`` over a
-``DNNScorer`` ranking model, with NDCG and MRR read from one shared
-per-list sort, a CUDA C++ kernel (``ops/cuda/csrc/sort.cu``).
+anything of ``ranking_tpu``. It holds two paths so far:
+
+* serving and eval: ``pipeline.serving.Predictor.score_batch`` and
+  ``evaluate_dataset`` over a ``DNNScorer`` ranking model, with NDCG and
+  MRR read from one shared per-list sort, a CUDA C++ kernel
+  (``ops/cuda/csrc/sort.cu``);
+* training: ``train.steps.make_train_step`` over the same model with
+  ``SoftmaxLoss`` and Adam, whose Dense -> masked BatchNorm -> ReLU tower
+  runs as CUDA C++ kernels forward and backward
+  (``ops/cuda/csrc/fused_bn_*.cu``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device='cpu'``; without CUDA they raise rather than carry on on the CPU.

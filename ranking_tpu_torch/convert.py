@@ -14,6 +14,11 @@ arrays, to the ``state_dict`` of the port's
 
 With ``input_batch_norm=True`` the tower's first BatchNorm (flax
 ``BatchNorm_0``) is the input one and the hidden ones follow it.
+
+``to_flax`` is the inverse, for anything keyed like the port's
+``state_dict``: parameters after a train step, or gradients
+(``{name: p.grad}``). It lays them out as the flax tree, so that tests
+compare the two packages leaf by leaf.
 """
 
 from __future__ import annotations
@@ -73,3 +78,44 @@ def from_flax(variables: Mapping[str, Any],
     state[f'{_PREFIX}{name}.running_var'] = _tensor(stat['var'])
     state[f'{_PREFIX}{name}.num_batches_tracked'] = torch.tensor(0)
   return state
+
+
+def to_flax(named: Mapping[str, torch.Tensor],
+            input_batch_norm: bool = False) -> Dict[str, Any]:
+  """The flax ``{'params', 'batch_stats'}`` tree (numpy leaves) of tensors
+  keyed by the port's ``state_dict`` names.
+
+  Keys that are missing (a gradient dictionary has no running statistics)
+  are left out of the tree; ``num_batches_tracked`` has no flax
+  counterpart.
+  """
+  params: Dict[str, Dict[str, np.ndarray]] = {}
+  stats: Dict[str, Dict[str, np.ndarray]] = {}
+  leaves = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
+            'running_mean': ('batch_stats', 'mean'),
+            'running_var': ('batch_stats', 'var')}
+  for name, tensor in named.items():
+    if not name.startswith(_PREFIX):
+      raise ValueError(f'{name!r} is not a parameter of the DNN tower')
+    if tensor is None or name.endswith('num_batches_tracked'):
+      continue
+    value = tensor.detach().to('cpu', torch.float32).numpy()
+    parts = name[len(_PREFIX):].split('.')
+    if parts[0] == 'dense':
+      layer = params.setdefault(f'Dense_{parts[1]}', {})
+      layer['kernel' if parts[2] == 'weight' else 'bias'] = (
+          value.T.copy() if parts[2] == 'weight' else value)
+      continue
+    if parts[0] == 'input_bn':
+      index, leaf = 0, parts[1]
+    elif parts[0] == 'bn':
+      index, leaf = int(parts[1]) + int(input_batch_norm), parts[2]
+    else:
+      raise ValueError(f'{name!r} is not a parameter of the DNN tower')
+    collection, flax_leaf = leaves[leaf]
+    target = params if collection == 'params' else stats
+    target.setdefault(f'BatchNorm_{index}', {})[flax_leaf] = value
+  tree: Dict[str, Any] = {'params': {'scorer': {'Tower_0': params}}}
+  if stats:
+    tree['batch_stats'] = {'scorer': {'Tower_0': stats}}
+  return tree

@@ -18,11 +18,11 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class RankingBatch:
-  """One eval batch: dicts of tensors, labels and a validity mask."""
+  """One batch: dicts of tensors, labels and a validity mask."""
 
   context: Dict[str, Tensor]   # each [B, ...]
   examples: Dict[str, Tensor]  # each [B, L, ...] (or flat [B*L, ...])
-  labels: Tensor               # [B, L] float, padding -1.0
+  labels: Tensor               # [B, L] float, padding -1.0 (or {task: ...})
   mask: Tensor                 # [B, L] bool
 
   @property
@@ -47,7 +47,8 @@ class RankingBatch:
     return RankingBatch(
         context={k: v.to(device) for k, v in self.context.items()},
         examples={k: v.to(device) for k, v in self.examples.items()},
-        labels=self.labels.to(device),
+        labels=({k: v.to(device) for k, v in self.labels.items()}
+                if isinstance(self.labels, dict) else self.labels.to(device)),
         mask=self.mask.to(device))
 
   def pad_to(self, batch_size: int) -> 'RankingBatch':

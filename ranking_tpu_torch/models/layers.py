@@ -1,13 +1,15 @@
 """Ranking model layers: feature concatenation, list restore, scoring tower.
 
-The port's copy of the inference parts of ``ranking_tpu/models/layers.py``
-(the reference's tensorflow_ranking/python/keras/layers.py). The data model
-is the framework's: context features ``[B, ...]``, example features
+The port's copy of the DNN parts of ``ranking_tpu/models/layers.py`` (the
+reference's tensorflow_ranking/python/keras/layers.py). The data model is
+the framework's: context features ``[B, ...]``, example features
 ``[B, L, ...]``, a boolean ``mask [B, L]``.
 
-Only the eval path is ported: ``training=True`` raises. The parameter
-layout (a Linear and a BatchNorm1d per hidden layer, named initializers)
-is the one the training slice will train.
+The tower runs in eval and in train mode. In train mode with batch norm,
+relu and no dropout its hidden chain is the fused masked-BN kernels of
+``ops/cuda/fused_bn.py``; every other configuration takes the unfused
+chain with the port's own batch-norm arithmetic (flax's: fast variance
+clipped at 0, biased variance in the running average).
 """
 
 from __future__ import annotations
@@ -19,18 +21,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ranking_tpu_torch.ops.cuda import fused_bn
 from ranking_tpu_torch.utils import list_ops
 
 Tensor = torch.Tensor
 
 # Score of a padded slot; the JAX package's restore_list fill.
 PADDING_LOGIT = math.log(1e-10)
-
-TRAINING_NOT_PORTED = (
-    'training=True is not ported yet: the PyTorch port serves and '
-    'evaluates; the train path (masked-BN tower kernels, losses, Adam) is '
-    'the next slice')
-
 
 def restore_list(flat_logits: Tensor, mask: Tensor) -> Tensor:
   """Restores ``[B*L, 1]`` (or ``[B*L]``) scores to masked ``[B, L]``
@@ -138,12 +135,27 @@ def _batch_norm(dim: int, momentum: float) -> nn.BatchNorm1d:
   return nn.BatchNorm1d(dim, eps=1e-5, momentum=1.0 - momentum)
 
 
+def dropout_mask(shape, rate: float, generator: torch.Generator,
+                 device) -> Tensor:
+  """Inverted-dropout factors: 0 with probability ``rate``, else
+  ``1 / (1 - rate)``. One generator state gives one mask."""
+  keep = torch.rand(shape, generator=generator, device=device) >= rate
+  return keep.to(torch.float32) / (1.0 - rate)
+
+
 class Tower(nn.Module):
   """Feed-forward scoring tower: [BN] -> (Linear -> BN -> act -> dropout)*
   -> Linear (create_tower, keras/layers.py:26-77).
 
-  Inference only: batch norm uses its running statistics and dropout is a
-  no-op. Parameters are float32.
+  ``dtype`` is the compute precision of the activations (float32 or
+  bfloat16); parameters and batch statistics stay float32.
+  ``input_grad=False`` declares the tower input's gradient unused (a
+  ``detach()`` on every path; the fused backward then skips its largest
+  write). Only set it when nothing trainable feeds the tower.
+
+  In train mode the running statistics are updated in place, flax's way:
+  ``ra = momentum * ra + (1 - momentum) * batch`` with the biased batch
+  variance (torch's own BatchNorm would store the unbiased one).
   """
 
   def __init__(
@@ -158,6 +170,8 @@ class Tower(nn.Module):
       dropout: float = 0.5,
       kernel_init: str = 'lecun_normal',
       generator: Optional[torch.Generator] = None,
+      dtype: torch.dtype = torch.float32,
+      input_grad: bool = True,
   ):
     super().__init__()
     if activation not in _ACTIVATIONS:
@@ -166,6 +180,9 @@ class Tower(nn.Module):
     self.activation = activation
     self.dropout = dropout
     self.kernel_init = kernel_init
+    self.dtype = dtype
+    self.input_grad = input_grad
+    self.use_batch_norm = use_batch_norm
     dims = [in_features, *hidden_layer_dims]
     self.input_bn = (_batch_norm(in_features, batch_norm_momentum)
                      if input_batch_norm else None)
@@ -189,21 +206,73 @@ class Tower(nn.Module):
     if self.input_bn is not None:
       self.input_bn.reset_parameters()
 
-  @staticmethod
-  def _apply_bn(bn: nn.BatchNorm1d, x: Tensor) -> Tensor:
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, training=False, eps=bn.eps)
+  def fused_ok(self, x: Tensor, training: bool) -> bool:
+    """Whether this call takes the fused masked-BN path."""
+    return (fused_bn.eligible(training, self.use_batch_norm,
+                              self.input_bn is not None, self.dropout,
+                              self.activation, self.dtype, x)
+            and len(self.dense) > 1)
 
-  def forward(self, x: Tensor, training: bool = False) -> Tensor:
-    if training:
-      raise NotImplementedError(TRAINING_NOT_PORTED)
+  @staticmethod
+  def _update_running(bn: nn.BatchNorm1d, mean: Tensor, var: Tensor) -> None:
+    with torch.no_grad():
+      bn.running_mean.lerp_(mean.detach().to(torch.float32), bn.momentum)
+      bn.running_var.lerp_(var.detach().to(torch.float32), bn.momentum)
+      bn.num_batches_tracked += 1
+
+  def _apply_bn(self, bn: nn.BatchNorm1d, x: Tensor,
+                training: bool) -> Tensor:
+    if not training:
+      return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                          bn.bias, training=False, eps=bn.eps).to(x.dtype)
+    # flax's BatchNorm: float32 statistics over all rows, fast variance.
+    x32 = x.to(torch.float32)
+    mean = x32.mean(0)
+    var = torch.clamp((x32 * x32).mean(0) - mean * mean, min=0.0)
+    self._update_running(bn, mean, var)
+    y = (x32 - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return y.to(x.dtype)
+
+  def _fused_forward(self, x: Tensor, row_mask: Optional[Tensor]) -> Tensor:
+    hidden = self.dense[:-1]
+    if row_mask is None:
+      row_mask = torch.ones((x.shape[0],), dtype=torch.float32,
+                            device=x.device)
+    out, means, vars_ = fused_bn.fused_bn_mlp(
+        x, row_mask, [l.weight for l in hidden], [l.bias for l in hidden],
+        [bn.weight for bn in self.bn], [bn.bias for bn in self.bn],
+        self.bn[0].eps, act_dtype=self.dtype, input_grad=self.input_grad)
+    for bn, mean, var in zip(self.bn, means, vars_):
+      self._update_running(bn, mean, var)
+    last = self.dense[-1]
+    out = F.linear(out, last.weight.to(self.dtype), last.bias.to(self.dtype))
+    return out.to(torch.float32)
+
+  def forward(self, x: Tensor, training: bool = False,
+              row_mask: Optional[Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> Tensor:
+    """``row_mask`` (fused path only): ``[N]`` row validity; the batch
+    statistics become the exact masked moments. The unfused chain ignores
+    it (its caller pads circularly instead). ``generator`` draws the
+    dropout masks in train mode and must live on ``x``'s device."""
+    if not self.input_grad:
+      x = x.detach()  # the same semantics on every path
+    if self.fused_ok(x, training):
+      return self._fused_forward(x, row_mask)
     act = _ACTIVATIONS[self.activation]
-    x = x.to(torch.float32)
+    x = x.to(self.dtype)
     if self.input_bn is not None:
-      x = self._apply_bn(self.input_bn, x)
+      x = self._apply_bn(self.input_bn, x, training)
     for i, layer in enumerate(self.dense[:-1]):
-      x = layer(x)
+      x = F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
       if self.bn:
-        x = self._apply_bn(self.bn[i], x)
+        x = self._apply_bn(self.bn[i], x, training)
       x = act(x)
-    return self.dense[-1](x)
+      if self.dropout and training:
+        if generator is None:
+          raise ValueError('training with dropout needs a torch.Generator')
+        x = x * dropout_mask(x.shape, self.dropout, generator,
+                             x.device).to(x.dtype)
+    last = self.dense[-1]
+    x = F.linear(x, last.weight.to(self.dtype), last.bias.to(self.dtype))
+    return x.to(torch.float32)

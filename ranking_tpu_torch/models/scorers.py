@@ -3,8 +3,7 @@
 The port's copy of ``DNNScorer`` and ``RankingModel`` from
 ``ranking_tpu/models/scorers.py`` (the reference's
 tensorflow_ranking/python/keras/model.py), as ``nn.Module``s mapping
-``(context, examples, mask) -> logits [B, L]``. Eval only: ``training=True``
-raises until the training slice.
+``(context, examples, mask) -> logits [B, L]``, in eval and train mode.
 """
 
 from __future__ import annotations
@@ -27,9 +26,14 @@ class DNNScorer(nn.Module):
   Each document is scored independently: features are concatenated
   (context broadcast over the list), flattened to ``[B*L, F]``, scored by
   a tower, and restored to masked ``[B, L]`` logits. ``in_features`` is
-  the width of that concatenation. In eval, batch norm reads its running
-  statistics, which do not couple rows, so no circular padding is needed
-  (the JAX package skips it in eval too).
+  the width of that concatenation.
+
+  Train-mode batch statistics must not see padding. On the fused path the
+  tower takes the row mask and computes exact masked moments; on the
+  unfused one invalid slots are circularly padded with valid documents of
+  the same list. In eval, batch norm reads its running statistics, which do
+  not couple rows, so neither is needed. ``input_grad=False`` only when
+  every feature is raw batch data.
   """
 
   def __init__(
@@ -44,6 +48,8 @@ class DNNScorer(nn.Module):
       dropout: float = 0.5,
       kernel_init: str = 'lecun_normal',
       generator: Optional[torch.Generator] = None,
+      dtype: torch.dtype = torch.float32,
+      input_grad: bool = True,
   ):
     super().__init__()
     self.output_units = output_units
@@ -52,16 +58,26 @@ class DNNScorer(nn.Module):
         activation=activation, input_batch_norm=input_batch_norm,
         use_batch_norm=use_batch_norm,
         batch_norm_momentum=batch_norm_momentum, dropout=dropout,
-        kernel_init=kernel_init, generator=generator)
+        kernel_init=kernel_init, generator=generator, dtype=dtype,
+        input_grad=input_grad)
 
   def forward(self, context: FeatureDict, examples: FeatureDict,
-              mask: Tensor, training: bool = False) -> Tensor:
-    if training:
-      raise NotImplementedError(layers_lib.TRAINING_NOT_PORTED)
+              mask: Tensor, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> Tensor:
     batch, list_size = mask.shape
     concat = layers_lib.concat_features(context, examples, mask,
                                         circular_padding=False)
-    scores = self.tower(concat.reshape(batch * list_size, -1))
+    flat = concat.reshape(batch * list_size, -1)
+    row_mask = None
+    tower = self.tower
+    if tower.fused_ok(flat, training):
+      row_mask = mask.reshape(-1)
+    elif training and (tower.use_batch_norm or tower.input_bn is not None):
+      concat = layers_lib.concat_features(context, examples, mask,
+                                          circular_padding=True)
+      flat = concat.reshape(batch * list_size, -1)
+    scores = tower(flat, training=training, row_mask=row_mask,
+                   generator=generator)
     if self.output_units == 1:
       return layers_lib.restore_list(scores, mask)
     logits = scores.reshape(batch, list_size, self.output_units)
@@ -89,7 +105,11 @@ class RankingModel(nn.Module):
     return t
 
   def forward(self, context: FeatureDict, examples: FeatureDict,
-              mask: Tensor, training: bool = False) -> Tensor:
+              mask: Tensor, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> Tensor:
     context = {k: self._transform(v) for k, v in context.items()}
     examples = {k: self._transform(v) for k, v in examples.items()}
-    return self.scorer(context, examples, mask, training=training)
+    if generator is None:
+      return self.scorer(context, examples, mask, training=training)
+    return self.scorer(context, examples, mask, training=training,
+                       generator=generator)

@@ -1,1 +1,1 @@
-"""Metrics, the metric registry and the CUDA kernels of the port."""
+"""Losses, metrics, their registries and the CUDA kernels of the port."""

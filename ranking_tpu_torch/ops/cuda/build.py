@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, ``_build/lib<name>_<hash>.so``, which is loaded with
-``ctypes``. The hash covers the source and the compiler flags, so an edited
-source rebuilds and an unchanged one loads the existing library. The
+``ctypes``. The hash covers the source, the headers (``csrc/*.cuh``) and the
+compiler flags, so an edited source rebuilds and an unchanged one loads the
+existing library. ``compile_libraries`` builds several sources at once, one
+``nvcc`` process each. The
 sources do not include PyTorch's headers, which keeps a build to seconds;
 the wrappers pass ``data_ptr()``s and the current stream's handle.
 
@@ -18,7 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+import time
+from concurrent import futures
+from typing import Dict, List, Sequence
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), '_build')
@@ -27,6 +31,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Seconds nvcc took for each library built by this process (by file name).
+BUILD_SECONDS: Dict[str, float] = {}
 _LOCK = threading.Lock()
 
 
@@ -55,6 +61,10 @@ def library_path(name: str, extra_flags: tuple = ()) -> str:
   """Where the library of ``csrc/<name>.cu`` lives for its current source."""
   with open(os.path.join(_CSRC, f'{name}.cu'), 'rb') as f:
     source = f.read()
+  for header in sorted(os.listdir(_CSRC)):
+    if header.endswith('.cuh'):
+      with open(os.path.join(_CSRC, header), 'rb') as f:
+        source += f.read()
   digest = hashlib.sha256(
       source + ' '.join(NVCC_FLAGS + tuple(extra_flags)).encode()
   ).hexdigest()[:16]
@@ -74,7 +84,9 @@ def compile_library(name: str, extra_flags: tuple = ()) -> str:
   tmp = f'{path}.{os.getpid()}.tmp'
   cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, *extra_flags, '-o', tmp,
                     os.path.join(_CSRC, f'{name}.cu')]
+  started = time.perf_counter()
   proc = subprocess.run(cmd, capture_output=True, text=True)
+  BUILD_SECONDS[os.path.basename(path)] = time.perf_counter() - started
   if proc.returncode != 0:
     raise KernelBuildError(
         f'nvcc failed on {name}.cu (exit {proc.returncode}):\n'
@@ -85,6 +97,12 @@ def compile_library(name: str, extra_flags: tuple = ()) -> str:
       f.write(proc.stdout + proc.stderr)
   os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
   return path
+
+
+def compile_libraries(names: Sequence[str]) -> List[str]:
+  """Compiles several sources side by side; returns their library paths."""
+  with futures.ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+    return list(pool.map(compile_library, names))
 
 
 def load_library(name: str) -> ctypes.CDLL:

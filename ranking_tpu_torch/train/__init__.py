@@ -1,1 +1,1 @@
-"""The eval step; the train step is the next slice."""
+"""The train state and the train and eval steps."""

@@ -1,25 +1,40 @@
-"""The eval step.
+"""The train and eval steps.
 
-The port's copy of the eval half of ``ranking_tpu/train/steps.py``:
-``eval_step(model, batch, metric_states) -> (metric_states, logits)`` runs
-the model in eval mode and streams every metric into a ``MeanState``, all
-on the device with no host synchronization. The train step is the next
-slice.
+The port's copy of ``ranking_tpu/train/steps.py``:
+
+* ``train_step(state, batch, generator=None) -> (state, metrics)``: forward
+  in train mode, loss, backward, optimizer update and the batch-statistics
+  update, in place on ``state.model`` and ``state.optimizer``;
+* ``eval_step(model, batch, metric_states) -> (metric_states, logits)``:
+  forward in eval mode, every metric streamed into a ``MeanState``.
+
+Both keep their results on the device and never synchronize with the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from ranking_tpu_torch.data.batch import RankingBatch
 from ranking_tpu_torch.ops.metric_registry import MeanState
+from ranking_tpu_torch.train.state import TrainState
 from ranking_tpu_torch.utils import list_ops
 from ranking_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
+LossFn = Callable[..., Tensor]
 MetricFn = Callable[..., Tuple[Tensor, Tensor]]
+
+
+def _masked_mean(values: Tensor, mask: Tensor) -> Tensor:
+  mask = mask.to(torch.float32)
+  # Multi-unit heads ([B, L, units] logits) broadcast the [B, L] mask.
+  if values.ndim > mask.ndim:
+    mask = mask.reshape(mask.shape + (1,) * (values.ndim - mask.ndim))
+  denom = torch.clamp(torch.sum(mask.expand(values.shape)), min=1.0)
+  return torch.sum(values * mask) / denom
 
 
 def restore_flat_examples(batch: RankingBatch) -> RankingBatch:
@@ -37,6 +52,119 @@ def restore_flat_examples(batch: RankingBatch) -> RankingBatch:
           if v.ndim >= 1 and v.shape[0] == b * l else v)
       for k, v in batch.examples.items()}
   return batch.replace(examples=examples)
+
+
+def _make_total_loss(loss_fn, multi_task_weights):
+  """Single or dict-of-task loss -> scalar total-loss closure."""
+  if (isinstance(loss_fn, Mapping) and multi_task_weights
+      and not set(multi_task_weights) <= set(loss_fn)):
+    # A mistyped task name would otherwise be silently ignored.
+    raise ValueError(
+        f'multi_task_weights names unknown tasks '
+        f'{sorted(set(multi_task_weights) - set(loss_fn))}; '
+        f'tasks are {sorted(loss_fn)}')
+
+  def _total_loss(labels, logits, features):
+    if isinstance(loss_fn, Mapping):
+      total = 0.0
+      for task, fn in sorted(loss_fn.items()):
+        w = 1.0 if not multi_task_weights else multi_task_weights.get(task, 1.)
+        total = total + w * fn(labels[task], logits[task], features=features)
+      return total
+    return loss_fn(labels, logits, features=features)
+
+  return _total_loss
+
+
+def _sanity_metrics(loss: Tensor, batch: RankingBatch,
+                    logits) -> Dict[str, Tensor]:
+  """Loss + labels/logits means mirroring the reference head
+  (python/head.py:216-223)."""
+  ref_logits = (logits if not isinstance(logits, dict)
+                else next(iter(sorted(logits.items())))[1])
+  ref_labels = (batch.labels if not isinstance(batch.labels, dict)
+                else next(iter(sorted(batch.labels.items())))[1])
+  return {
+      'loss': loss.detach(),
+      'labels_mean': _masked_mean(ref_labels, batch.mask),
+      'logits_mean': _masked_mean(ref_logits.detach(), batch.mask),
+  }
+
+
+def make_train_step(
+    loss_fn: Any,
+    multi_task_weights: Optional[Mapping[str, float]] = None,
+    device: DeviceLike = 'cuda',
+) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+  """Builds ``train_step(state, batch, generator=None) -> (state, metrics)``.
+
+  ``loss_fn(labels, logits, features=None) -> scalar`` as built by
+  ``ops.loss_registry.make_loss_fn``; for multi-task models pass a dict
+  ``{task: loss_fn}`` and the batch carries dict labels. The batch moves to
+  ``device``; the state (``train.state.create_train_state``) must already
+  be there. ``generator`` (on ``device``) draws the dropout masks; a model
+  without dropout needs none.
+
+  The step updates ``state`` in place and returns it: parameters and
+  optimizer moments by the optimizer, running batch statistics by the
+  train-mode forward. Metrics are 0-d tensors on the device.
+  """
+  device = resolve_device(device)
+  _total_loss = _make_total_loss(loss_fn, multi_task_weights)
+
+  def train_step(state: TrainState, batch: RankingBatch,
+                 generator: Optional[torch.Generator] = None):
+    batch = restore_flat_examples(batch.to(device))
+    state.optimizer.zero_grad(set_to_none=True)
+    extra = {} if generator is None else {'generator': generator}
+    logits = state.model(batch.context, batch.examples, batch.mask,
+                         training=True, **extra)
+    loss = _total_loss(batch.labels, logits, batch.features)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return state, _sanity_metrics(loss, batch, logits)
+
+  return train_step
+
+
+def stack_batches(batches: List[RankingBatch]) -> RankingBatch:
+  """K batches of one shape as one batch with a leading steps axis."""
+  def stack(items):
+    return torch.stack(list(items))
+  first = batches[0]
+  return RankingBatch(
+      context={k: stack(b.context[k] for b in batches) for k in first.context},
+      examples={k: stack(b.examples[k] for b in batches)
+                for k in first.examples},
+      labels=stack(b.labels for b in batches),
+      mask=stack(b.mask for b in batches))
+
+
+def make_multi_step(
+    train_step: Callable[..., Tuple[TrainState, Dict[str, Tensor]]],
+) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+  """Wraps a train_step to run K steps per call.
+
+  The batch argument has a leading steps axis on every leaf
+  (``stack_batches``); the returned metrics are per-step ``[K]`` tensors.
+  The steps run as a Python loop, one after another.
+  """
+
+  def multi_step(state: TrainState, stacked_batch: RankingBatch,
+                 generator: Optional[torch.Generator] = None):
+    per_step = []
+    for k in range(stacked_batch.mask.shape[0]):
+      batch = RankingBatch(
+          context={n: v[k] for n, v in stacked_batch.context.items()},
+          examples={n: v[k] for n, v in stacked_batch.examples.items()},
+          labels=stacked_batch.labels[k], mask=stacked_batch.mask[k])
+      state, metrics = train_step(state, batch, generator)
+      per_step.append(metrics)
+    return state, {name: torch.stack([m[name] for m in per_step])
+                   for name in per_step[0]}
+
+  return multi_step
 
 
 def make_eval_step(

@@ -1,7 +1,7 @@
 """Masking-aware list algebra on padded ``[batch, list_size]`` tensors.
 
 The port's copy of the parts of ``ranking_tpu/utils/list_ops.py`` that the
-eval path uses (the reference's tensorflow_ranking/python/utils.py). The
+eval and train paths use (the reference's tensorflow_ranking/python/utils.py). The
 data model is the framework's: labels ``[B, L]`` padded with -1.0 (invalid
 <=> label < 0), scores ``[B, L]``, example features ``[B, L, F]`` and an
 optional boolean ``mask [B, L]``.
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -195,3 +195,16 @@ def reshape_to_2d(tensor: Tensor) -> Tensor:
   while tensor.ndim < 2:
     tensor = tensor[..., None]
   return tensor
+
+
+def parse_keys_and_weights(key: str) -> Dict[str, float]:
+  """Parses ``'softmax_loss:0.9,sigmoid_cross_entropy_loss:0.1'`` to a dict."""
+
+  def _parse(kw: str) -> Tuple[str, float]:
+    if ':' in kw:
+      name, weight = kw.split(':')
+      return name, float(weight)
+    return kw, 1.0
+
+  key = key.replace(' ', '')
+  return dict(_parse(part) for part in key.split(','))

@@ -1,4 +1,4 @@
-"""The port's CUDA sort kernel on the card (skips without CUDA).
+"""The port's CUDA kernels on the card (skips without CUDA).
 
 Run on a machine with the card (this file imports no JAX, so the JAX-side
 conftest is left out):
@@ -9,6 +9,7 @@ conftest is left out):
 import pytest
 import torch
 
+from ranking_tpu_torch.ops.cuda import fused_bn
 from ranking_tpu_torch.ops.cuda import sort as cuda_sort
 from ranking_tpu_torch.utils import list_ops
 
@@ -18,7 +19,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
   if not torch.cuda.is_available():
-    pytest.skip('needs a CUDA card: the sort kernel has no CPU mode')
+    pytest.skip('needs a CUDA card: the kernels have no CPU mode')
   return torch.device('cuda')
 
 
@@ -62,3 +63,125 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
   too_long = torch.zeros(1, cuda_sort.MAX_LIST_SIZE + 1, device=dev)
   with pytest.raises(ValueError, match='shared'):
     cuda_sort.sorted_values_and_ranks(too_long, too_long[..., None])
+
+
+# --- the fused masked-BN tower (rows 2-6 of the kernel table) ---------------
+
+# Share of the largest value of an output: float32 sums in another order;
+# bf16 stores may differ by one ulp (2^-8, rounded up to 2^-7).
+_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 2e-3)}
+
+
+def _tower_case(dev, n, dims, act, seed):
+  gen = torch.Generator().manual_seed(seed)
+  rnd = lambda *shape, scale=1.0: (  # noqa: E731
+      torch.randn(*shape, generator=gen) * scale).to(dev)
+  x = rnd(n, dims[0])
+  mask = (torch.rand(n, generator=gen) > 0.3).float().to(dev)
+  weights = [rnd(o, i, scale=i ** -0.5) for i, o in zip(dims[:-1], dims[1:])]
+  vecs = [[rnd(o, scale=.1) for o in dims[1:]],
+          [1 + rnd(o, scale=.1) for o in dims[1:]],
+          [rnd(o, scale=.1) for o in dims[1:]]]
+  return x, mask, weights, vecs, rnd(n, dims[-1]).to(act)
+
+
+def _assert_close(got, want, tol):
+  got, want = got.float(), want.float()
+  assert got.shape == want.shape
+  assert (got - want).abs().max() <= tol * want.abs().max().clamp(min=1e-30)
+
+
+@pytest.mark.parametrize('act', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,dims', [(700, (136, 96, 40)),
+                                    (1000, (20, 130, 129))])
+def test_fused_bn_rows_equal_plain_versions(dev, n, dims, act):
+  x, mask, (w0, w1), (bs, gammas, betas), g = _tower_case(dev, n, dims, act,
+                                                           seed=n)
+  stored, summed = _TOL[act]
+  ones, zeros = torch.ones(dims[0], device=dev), torch.zeros(dims[0],
+                                                             device=dev)
+  s0, t0, s1, t1 = gammas[0], betas[0], gammas[1], betas[1]
+  c1, c2 = 0.01 * bs[1], 0.01 * betas[1]
+
+  def both(fn):
+    got = fn()
+    with fused_bn.plain_versions():
+      want = fn()
+    torch.cuda.synchronize()
+    return got, want
+
+  got, want = both(lambda: fused_bn.layer_forward(
+      x, mask, ones, zeros, w0.t(), bs[0], relu_in=False, act_dtype=act))
+  y0 = want[0]
+  for g_i, w_i, tol in zip(got, want, (stored, summed, summed)):
+    _assert_close(g_i, w_i, tol)
+  got, want = both(lambda: fused_bn.layer_forward(
+      y0, mask, s0, t0, w1.t(), bs[1], relu_in=True, act_dtype=act))
+  y1 = want[0]
+  for g_i, w_i, tol in zip(got, want, (stored, summed, summed)):
+    _assert_close(g_i, w_i, tol)
+  got, want = both(lambda: fused_bn.bwd_stats(g, y1, s1, t1))
+  for g_i, w_i in zip(got, want):
+    _assert_close(g_i, w_i, summed)
+  for kw in (dict(), dict(x0=x), dict(x0=x, emit_dx=False)):
+    got, want = both(lambda: fused_bn.bwd_mats(
+        g, y1, mask, s1, t1, c1, c2, y0, s0, t0, w1.t(), relu_in=True,
+        emit_prev_stats=True, **kw))
+    assert len(got) == len(want) == (6 if kw else 4)
+    for i, (g_i, w_i) in enumerate(zip(got, want)):
+      assert (g_i is None) == (w_i is None)
+      if g_i is not None:
+        _assert_close(g_i, w_i, stored if i == 0 else summed)
+  g0 = want[0] if want[0] is not None else torch.zeros_like(y0)
+  k1, k2 = 0.01 * bs[0], 0.01 * betas[0]
+  got, want = both(lambda: fused_bn.bwd_dx_only(g0, y0, mask, s0, t0, k1, k2,
+                                                w0.t()))
+  _assert_close(got, want, summed)
+  got, want = both(lambda: fused_bn.bwd_dw_only(
+      g0, y0, mask, s0, t0, k1, k2, x, ones, zeros, relu_in=False))
+  _assert_close(got, want, summed)
+
+
+@pytest.mark.parametrize('dims,input_grad,counts', [
+    ((136, 96, 40, 24), False, [3, 1, 2, 0, 0]),
+    ((136, 96, 40), True, [2, 1, 1, 1, 0]),
+    ((136, 96), True, [1, 1, 0, 1, 1]),
+    ((136, 96), False, [1, 1, 0, 0, 1])])
+def test_fused_op_launches_and_gradients(dev, dims, input_grad, counts):
+  x, mask, weights, vecs, cot = _tower_case(dev, 900, dims, torch.float32, 3)
+
+  def run():
+    xd = x.clone().requires_grad_(input_grad)
+    leaves = [[p.clone().requires_grad_() for p in group]
+              for group in [weights] + vecs]
+    out, means, vars_ = fused_bn.fused_bn_mlp(xd, mask, *leaves,
+                                              input_grad=input_grad)
+    flat = ([xd] if input_grad else []) + [p for grp in leaves for p in grp]
+    return [out, *means, *vars_,
+            *torch.autograd.grad((out * cot).sum(), flat)]
+
+  fused_bn.reset_launches()
+  got = run()
+  assert [fn.launches for fn in fused_bn.KERNEL_WRAPPERS] == counts
+  with fused_bn.plain_versions():
+    want = run()
+  assert [fn.launches for fn in fused_bn.KERNEL_WRAPPERS] == counts
+  for g_i, w_i in zip(got, want):
+    if w_i.abs().max() > 1e-3:  # bias gradients are rounding noise around 0
+      _assert_close(g_i, w_i, 1e-4)
+
+
+def test_fused_wrappers_refuse_what_the_kernels_cannot_take(dev):
+  x = torch.zeros(8, 4, device=dev)
+  with pytest.raises(ValueError, match='float32 or bfloat16'):
+    fused_bn.layer_forward(x.half(), torch.ones(8, device=dev),
+                           torch.ones(4, device=dev),
+                           torch.zeros(4, device=dev),
+                           torch.zeros(4, 2, device=dev),
+                           torch.zeros(2, device=dev), relu_in=False)
+  with pytest.raises(ValueError, match='w:'):
+    fused_bn.layer_forward(x, torch.ones(8, device=dev),
+                           torch.ones(4, device=dev),
+                           torch.zeros(4, device=dev),
+                           torch.zeros(5, 2, device=dev),
+                           torch.zeros(2, device=dev), relu_in=False)

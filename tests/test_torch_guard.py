@@ -9,6 +9,7 @@ import torch
 
 from ranking_tpu_torch.models import scorers
 from ranking_tpu_torch.pipeline import serving
+from ranking_tpu_torch.train import state as state_lib
 from ranking_tpu_torch.train import steps
 
 _CHECK = """
@@ -42,4 +43,12 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     serving.evaluate_dataset(model, None, [])
   with pytest.raises(RuntimeError, match="device='cpu'"):
     steps.make_eval_step({})
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    steps.make_train_step(lambda *a, **k: None)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    state_lib.create_train_state(model)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    steps.init_metric_states({})
   serving.Predictor(model, device='cpu')  # the CPU when asked
+  state_lib.create_train_state(model, device='cpu')
+  steps.make_train_step(lambda *a, **k: None, device='cpu')

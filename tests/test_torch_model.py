@@ -1,4 +1,5 @@
-"""PyTorch port's DNN ranking model == the JAX package's, in eval mode.
+"""PyTorch port's DNN ranking model == the JAX package's, in eval mode
+(train mode is held in tests/test_torch_fused_bn.py).
 
 A flax ``RankingModel(DNNScorer(...), 'log1p')`` is initialised, given
 random BN parameters and running statistics, carried over with
@@ -115,13 +116,19 @@ def test_converter_rejects_other_models():
 
 
 def test_training_is_the_next_slice():
-  model = scorers.RankingModel(scorers.DNNScorer((4,), in_features=F))
+  # The training slice is ported: train mode runs, updates the running
+  # statistics flax's way and leaves eval mode untouched by dropout.
+  model = scorers.RankingModel(scorers.DNNScorer((4,), in_features=F,
+                                                 dropout=0.0))
   context, examples, mask = _batch()
-  with pytest.raises(NotImplementedError, match='next slice'):
-    model({}, {'x': torch.from_numpy(examples)}, torch.from_numpy(mask),
-          training=True)
+  bn = model.scorer.tower.bn[0]
+  before = bn.running_mean.clone()
+  logits = model({}, {'x': torch.from_numpy(examples)},
+                 torch.from_numpy(mask), training=True)
+  assert logits.shape == mask.shape and logits.requires_grad
+  assert not torch.equal(bn.running_mean, before)
   # flax momentum 0.999 == torch momentum 0.001.
-  assert model.scorer.tower.bn[0].momentum == pytest.approx(0.001)
+  assert bn.momentum == pytest.approx(0.001)
 
 
 @pytest.mark.parametrize('name,limit', [('glorot_uniform', (6 / 48) ** .5),
