@@ -7,9 +7,9 @@ card.
 Phases (any failure exits non-zero before the last line is printed):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the three kernel sources of
+2. build: compiles the four kernel sources of
    ``ranking_tpu_torch/ops/cuda/csrc`` side by side (the sort, the fused
-   masked-BN tower's forward and its backward);
+   masked-BN tower's forward and its backward, the fused pairwise sums);
 3. kernel vs plain: the CUDA sort against ``sorted_values_and_ranks_reference``
    on the card, required bitwise equal (ranks and sorted values), at the
    flagship shape (B=128, L=200, K=2, topn 1/5/10/200), with score ties,
@@ -21,7 +21,16 @@ Phases (any failure exits non-zero before the last line is printed):
    (tolerances at ``FUSED_TOL``: these are sums over up to 25600 rows in
    another order, so bitwise equality is not expected), and the whole
    ``fused_bn_mlp`` (outputs, means, vars, all gradients) against autograd
-   through ``reference_bn_mlp`` on the card and in float64 on the CPU;
+   through ``reference_bn_mlp`` on the card and in float64 on the CPU.
+   Then the fused pairwise sums (``ops/cuda/pairwise.py``), forward and
+   backward, against their plain versions: the three loss types x the five
+   lambda modes at B=128, L=200 with ragged lists, graded labels and item
+   weights, and the edges listed at ``_pairwise_cases`` (the count of
+   non-zero pair weights must be equal, the sums and ``dlogits`` within
+   ``PAIR_TOL`` of the output's largest value); and the whole
+   ``PairwiseLogisticLoss`` with the NDCG lambda weight against autograd
+   through the ``[B, L, L]`` path on the card and against float64 on the
+   CPU;
 4. main path: the flagship model (RankingModel(DNNScorer(1024-512-256),
    'log1p') over 136 float features, random weights and running
    statistics from a seeded ``torch.Generator``) answers
@@ -52,10 +61,26 @@ Phases (any failure exits non-zero before the last line is printed):
 9. times of the fused functions (device time from CUDA graph replays, each
    beside its plain version and its bound) and of a train step (host clock
    and CUDA events), beside the same step with the fused switch off;
-10. with ``--profile`` only: the kernels' registers and spills from
+10. LambdaRank training main path: the same model and step with
+   ``pairwise_logistic_loss`` and the NDCG lambda weight, 8 steps with no
+   generator. The first step is held against the plain versions as in
+   phase 7; launches per step must be 1 / 1 for the two pairwise functions,
+   3 / 1 / 2 / 0 / 0 for the fused BN functions and 1 for the sort kernel
+   (the ideal DCG). Then one step each of ``pairwise_hinge_loss`` with
+   the label-difference weight, ``pairwise_soft_zero_one_loss`` with none,
+   and ``pairwise_logistic_loss`` with the V2 NDCG weight at topn 10 and a
+   seeded generator (shuffled rank ties); the trained model is evaluated;
+11. long lists: one train step at B=16, L=1024 without batch norm, with the
+   pairwise kernels and with the switch off: gradients compared, peak
+   device memory of each;
+12. times of the pairwise functions at B128xL200 and B16xL1024 for no
+   lambda weight and for the NDCG weight (device time from CUDA graph
+   replays, beside the plain version and the bound), and of the LambdaRank
+   train step with the pairwise switch on and off;
+13. with ``--profile`` only: the kernels' registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
    busiest kernels of one eval step, one B=128 serve request and one train
-   step.
+   step of each loss.
 
 Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.
@@ -92,6 +117,17 @@ FUSED_TOL = {'float32': {'stored': 1e-5, 'summed': 1e-5},
 # whole contribution. So the error is held in the Frobenius norm, and the
 # largest single entry only loosely.
 OP_TOL_NORM, OP_TOL_MAX = 2e-3, 5e-2
+# The fused pairwise sums against their plain versions: the count of
+# non-zero pair weights exactly; the two float sums and dlogits as a share
+# of the output's largest value (float32 sums of up to L^2 terms in another
+# order). The 46 cases of phase 3 measured 3.7e-7 at most on an H100.
+PAIR_TOL = 2e-6
+# Special-function results (exp, log, reciprocal) a second: 16 a clock a
+# multiprocessor against 128 float32 lanes of 2 operations (NVIDIA's table
+# of arithmetic instruction throughput for compute capability 9.0), so 1/16
+# of the float32 rate.
+SFU_OPS_PER_S = F32_OPS_PER_S / 16
+LONG_B, LONG_L = 16, 1024         # benchmarks/pairwise_sweep.py: B * L = 16384
 
 
 def _fail(msg):
@@ -198,18 +234,24 @@ def _sort_case(gen, b, l, k, kind):
   return scores, mask, values
 
 
-def _make_batch(gen, b, *, min_len=20):
+def _graded_labels(gen, b, l, min_len):
+  """Ragged lists of graded 0-4 labels skewed to 0; -1 pads."""
+  import torch
+  lengths = torch.randint(min_len, l + 1, (b,), generator=gen)
+  valid = torch.arange(l)[None, :] < lengths[:, None]
+  grades = torch.multinomial(torch.tensor([.5, .3, .15, .04, .01]), b * l,
+                             replacement=True, generator=gen).reshape(b, l)
+  return torch.where(valid, grades.float(), -1.0), valid
+
+
+def _make_batch(gen, b, *, min_len=20, l=L):
   """A flagship-shaped host batch: 136 heavy-tailed float features,
   graded 0-4 labels skewed to 0, ragged list lengths."""
   import torch
   from ranking_tpu_torch.data import batch as batch_lib
-  lengths = torch.randint(min_len, L + 1, (b,), generator=gen)
-  valid = torch.arange(L)[None, :] < lengths[:, None]
-  grades = torch.multinomial(torch.tensor([.5, .3, .15, .04, .01]), b * L,
-                             replacement=True, generator=gen).reshape(b, L)
-  labels = torch.where(valid, grades.float(), -1.0)
-  features = torch.exp(2.0 * torch.randn(b, L, F, generator=gen))
-  features *= torch.where(torch.rand(b, L, F, generator=gen) < 0.1, -1.0, 1.0)
+  labels, valid = _graded_labels(gen, b, l, min_len)
+  features = torch.exp(2.0 * torch.randn(b, l, F, generator=gen))
+  features *= torch.where(torch.rand(b, l, F, generator=gen) < 0.1, -1.0, 1.0)
   return batch_lib.RankingBatch(context={}, examples={'features': features},
                                 labels=labels, mask=valid)
 
@@ -485,16 +527,79 @@ def _check_fused_op(gen):
          f'within {worst_norm:.3g} in norm, {worst_max:.3g} at most')
 
 
-def _train_model(gen, hidden=HIDDEN):
+def _train_model(gen, hidden=HIDDEN, use_batch_norm=True):
   from ranking_tpu_torch.models import scorers
   return scorers.RankingModel(
       scorers.DNNScorer(hidden, in_features=F, dropout=0.0, input_grad=False,
-                        generator=gen), transform_name='log1p')
+                        use_batch_norm=use_batch_norm, generator=gen),
+      transform_name='log1p')
 
 
 def _launch_counts():
   from ranking_tpu_torch.ops.cuda import fused_bn
   return [fn.launches for fn in fused_bn.KERNEL_WRAPPERS]
+
+
+def _snapshot_first_step(state):
+  grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
+  stats = {k: v.clone() for k, v in state.model.state_dict().items()
+           if 'running' in k}
+  return grads, stats
+
+
+def _all_launch_counts():
+  """Launches of every kernel wrapper: the sort, rows 2-6, rows 7-8."""
+  from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+  return ([cuda_sort.sorted_values_and_ranks.launches] + _launch_counts()
+          + [fn.launches for fn in pairwise.KERNEL_WRAPPERS])
+
+
+def _hold_first_step(what, step, twin, batch, first_loss, first_grads,
+                     first_stats):
+  """The same first step through the plain versions of rows 2-8, on the
+  card, from a copy of the untrained model: loss, gradients and running
+  statistics against the kernels' step."""
+  import contextlib
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.train import state as state_lib
+  twin_state = state_lib.create_train_state(twin, state_lib.adam(1e-3),
+                                            device='cuda')
+  before = _all_launch_counts()[1:]
+  with contextlib.ExitStack() as stack:
+    stack.enter_context(fused_bn.plain_versions())
+    stack.enter_context(pairwise.plain_versions())
+    twin_state, twin_metrics = step(twin_state, batch)
+  if _all_launch_counts()[1:] != before:
+    _fail(f'{what}: the plain-version step launched a kernel')
+  loss_err = abs(twin_metrics['loss'].item() - first_loss)
+  if loss_err > 1e-5 * abs(first_loss):
+    _fail(f'{what}: first loss {first_loss} vs plain versions '
+          f'{twin_metrics["loss"].item()}')
+  worst_norm = worst_max = 0.0
+  for k, p in twin_state.model.named_parameters():
+    g, w = first_grads[k], p.grad
+    scale = w.abs().max().item()
+    if scale < 1e-6:   # zero in theory (biases in front of a batch norm)
+      if (g - w).abs().max().item() > 1e-6:
+        _fail(f'{what}: zero gradient {k} off by more than 1e-6')
+      continue
+    worst_norm = max(worst_norm, ((g - w).norm() / w.norm()).item())
+    worst_max = max(worst_max, (g - w).abs().max().item() / scale)
+  if worst_norm > OP_TOL_NORM or worst_max > OP_TOL_MAX:
+    _fail(f'{what}: first-step gradients differ from the plain versions by '
+          f'{worst_norm:.3g} in norm, {worst_max:.3g} at most')
+  stat_err = 0.0
+  for k, v in twin_state.model.state_dict().items():
+    if 'running' in k:
+      stat_err = max(stat_err, _rel_err(first_stats[k], v)[1])
+  if stat_err > 1e-5:
+    _fail(f'{what}: running statistics differ from the plain versions by '
+          f'{stat_err:.3g}')
+  _log(f'{what}: first step vs plain versions on the card: loss within '
+       f'{loss_err:.3g}, gradients within {worst_norm:.3g} in norm and '
+       f'{worst_max:.3g} at most, running statistics within {stat_err:.3g}')
 
 
 def _train_main_path(gen, eval_batches, fns):
@@ -524,10 +629,7 @@ def _train_main_path(gen, eval_batches, fns):
     state, metrics = step(state, batch)
     losses.append(metrics['loss'].item())
     if i == 0:
-      first_grads = {k: p.grad.clone()
-                     for k, p in state.model.named_parameters()}
-      first_stats = {k: v.clone() for k, v in state.model.state_dict().items()
-                     if 'running' in k}
+      first_grads, first_stats = _snapshot_first_step(state)
   trained_eval = serving.evaluate_dataset(state.model, None, eval_batches,
                                           metric_fns=fns, device='cuda')
   counts = _launch_counts()
@@ -550,41 +652,8 @@ def _train_main_path(gen, eval_batches, fns):
        'trained model eval: '
        + ', '.join(f'{k} {v:.4f}' for k, v in trained_eval.items()))
 
-  # The same first step through the plain versions, on the card.
-  twin_state = state_lib.create_train_state(twin, state_lib.adam(1e-3),
-                                            device='cuda')
-  before = _launch_counts()
-  with fused_bn.plain_versions():
-    twin_state, twin_metrics = step(twin_state, batch)
-  if _launch_counts() != before:
-    _fail('the plain-version step launched a kernel')
-  loss_err = abs(twin_metrics['loss'].item() - losses[0])
-  if loss_err > 1e-5 * abs(losses[0]):
-    _fail(f'train: first loss {losses[0]} vs plain versions '
-          f'{twin_metrics["loss"].item()}')
-  worst_norm = worst_max = 0.0
-  for k, p in twin_state.model.named_parameters():
-    g, w = first_grads[k], p.grad
-    scale = w.abs().max().item()
-    if scale < 1e-6:   # zero in theory (biases in front of a batch norm)
-      if (g - w).abs().max().item() > 1e-6:
-        _fail(f'train: zero gradient {k} off by more than 1e-6')
-      continue
-    worst_norm = max(worst_norm, ((g - w).norm() / w.norm()).item())
-    worst_max = max(worst_max, (g - w).abs().max().item() / scale)
-  if worst_norm > OP_TOL_NORM or worst_max > OP_TOL_MAX:
-    _fail(f'train: first-step gradients differ from the plain versions by '
-          f'{worst_norm:.3g} in norm, {worst_max:.3g} at most')
-  stat_err = 0.0
-  for k, v in twin_state.model.state_dict().items():
-    if 'running' in k:
-      stat_err = max(stat_err, _rel_err(first_stats[k], v)[1])
-  if stat_err > 1e-5:
-    _fail(f'train: running statistics differ from the plain versions by '
-          f'{stat_err:.3g}')
-  _log(f'train: first step vs plain versions on the card: loss within '
-       f'{loss_err:.3g}, gradients within {worst_norm:.3g} in norm and '
-       f'{worst_max:.3g} at most, running statistics within {stat_err:.3g}')
+  _hold_first_step('train', step, twin, batch, losses[0], first_grads,
+                   first_stats)
   return counts, state, step, batch
 
 
@@ -655,22 +724,439 @@ def _time_fused(gen):
   return out
 
 
-def _time_train_step(state, step, batch):
-  """Phase 9b: a train step's host and device time, fused and unfused."""
+def _time_train_step(state, step, batch, switch_module, prefix='train'):
+  """Phases 9b and 12b: a train step's host and device time with the
+  kernels of ``switch_module`` on (fused) and switched off (unfused)."""
   import torch
-  from ranking_tpu_torch.ops.cuda import fused_bn
   dev_batch = batch.to(torch.device('cuda'))
   fn = lambda: step(state, dev_batch)  # noqa: E731
   out = {}
   for name, switch in (('fused', None), ('unfused', False)):
-    fused_bn.set_enabled(switch)
+    switch_module.set_enabled(switch)
     try:
-      out[f'train_step_{name}_host_ms'] = _host_ms(fn, 20)
-      out[f'train_step_{name}_device_ms'] = _event_ms(fn, 20, warmup=3)
+      out[f'{prefix}_step_{name}_host_ms'] = _host_ms(fn, 20)
+      out[f'{prefix}_step_{name}_device_ms'] = _event_ms(fn, 20, warmup=3)
     finally:
-      fused_bn.set_enabled(None)
-  out['train_lists_per_s'] = B / out['train_step_fused_host_ms'] * 1e3
+      switch_module.set_enabled(None)
+  out[f'{prefix}_lists_per_s'] = B / out[f'{prefix}_step_fused_host_ms'] * 1e3
   return out, fn
+
+
+# --- rows 7 and 8: the fused pairwise sums -----------------------------------
+
+
+def _pairwise_inputs(gen, b, l, *, min_len=None, topn=None, integer_logits=False):
+  """Operands of the fused pairwise sums as the dispatcher makes them for a
+  ragged graded batch with item weights: gains 2^l - 1, the logits' own
+  ranks, scale = L / maxDCG (capped at ``topn``). On the card."""
+  import torch
+  from ranking_tpu_torch.ops import sorting
+  dev = torch.device('cuda')
+  labels, valid = _graded_labels(gen, b, l, min_len or max(1, l // 10))
+  logits = torch.randn(b, l, generator=gen) * 2
+  if integer_logits:   # tied logits, and pairs at exactly d == 1
+    logits = torch.round(logits)
+  weights = torch.where(valid, torch.rand(b, l, generator=gen) + 0.1, 0.0)
+  ct = torch.randn(b, 3, generator=gen)
+  labels, valid, logits, weights, ct = (
+      t.to(dev) for t in (labels, valid, logits, weights, ct))
+  clean = torch.where(valid, labels, 0.0)
+  ranks = sorting.compute_ranks(logits, valid).to(torch.float32)
+  scale = float(l) * sorting.inverse_max_dcg(clean, topn=topn)[:, 0]
+  return dict(labels=labels, logits=logits, mask=valid.to(torch.float32),
+              norm_w=weights, gain=torch.pow(2.0, clean) - 1.0, ranks=ranks,
+              scale=scale, ct=ct)
+
+
+_PAIR_OPERANDS = ('labels', 'logits', 'mask', 'norm_w', 'gain', 'ranks',
+                  'scale')
+
+
+def _pairwise_cases(gen):
+  """(name, operands, static arguments) of every kernel-vs-plain case."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import pairwise as pw
+  losses = {'logistic': pw.LOSS_LOGISTIC, 'hinge': pw.LOSS_HINGE,
+            'soft01': pw.LOSS_SOFT_ZERO_ONE}
+  modes = {'none': pw.LAMBDA_NONE, 'labeldiff': pw.LAMBDA_LABELDIFF,
+           'v2': pw.LAMBDA_DCG_V2, 'v1': pw.LAMBDA_DCG_V1,
+           'yeti': pw.LAMBDA_DCG_V2_NEIGHBOR}
+  kinds = {'log2': pw.DISCOUNT_LOG2_INVERSE, 'inverse': pw.DISCOUNT_INVERSE,
+           'log1p': pw.DISCOUNT_LOG1P_INVERSE}
+  dcg = ('v2', 'v1', 'yeti')
+
+  def static(loss, mode, kind='log1p', topn=None, smooth=0.0, l=L):
+    return (losses[loss], modes[mode], kinds[kind],
+            float(topn or l), smooth)
+
+  cases = []
+  flagship = _pairwise_inputs(gen, B, L)
+  for loss in losses:
+    for mode in modes:
+      cases.append((f'B{B} L{L} {loss} {mode}', flagship, static(loss, mode)))
+  small = _pairwise_inputs(gen, 5, 11, min_len=3)
+  for mode in modes:
+    cases.append((f'B5 L11 logistic {mode}', small,
+                  static('logistic', mode, l=11)))
+  for l in (1, 2):
+    tiny = _pairwise_inputs(gen, 3, l, min_len=1)
+    cases.append((f'B3 L{l} hinge v1', tiny, static('hinge', 'v1', l=l)))
+  # A list with no valid item, and one whose labels are all equal: no
+  # pair, so three zeros and a zero gradient (checked in the caller).
+  empty = _pairwise_inputs(gen, 4, 50)
+  empty['mask'][0] = 0.0
+  empty['labels'][0] = -1.0
+  empty['norm_w'][0] = 0.0
+  empty['labels'][1] = torch.where(empty['mask'][1] > 0, 2.0, -1.0)
+  for mode in ('none', 'v1'):
+    cases.append((f'no-pair lists logistic {mode}', empty,
+                  static('logistic', mode, l=50)))
+  # Tied logits, and hinge pairs at exactly d == 1.
+  ties = _pairwise_inputs(gen, B, L, integer_logits=True)
+  for loss in losses:
+    cases.append((f'integer logits {loss} v2', ties, static(loss, 'v2')))
+  cases.append(('integer logits hinge none', ties, static('hinge', 'none')))
+  top10 = _pairwise_inputs(gen, B, L, topn=10)
+  for mode in dcg:
+    cases.append((f'topn 10 logistic {mode}', top10,
+                  static('logistic', mode, topn=10)))
+  cases.append(('topn 10 smooth 0.25 soft01 v1', top10,
+                static('soft01', 'v1', topn=10, smooth=0.25)))
+  cases.append(('smooth 1.0 logistic v1', flagship,
+                static('logistic', 'v1', smooth=1.0)))
+  for kind in ('log2', 'inverse'):
+    for mode in dcg:
+      cases.append((f'discount {kind} logistic {mode} topn 7', flagship,
+                    static('logistic', mode, kind=kind, topn=7)))
+  for b, l in ((LONG_B, LONG_L), (4, 2048)):
+    long_lists = _pairwise_inputs(gen, b, l)
+    for loss, mode in (('logistic', 'v1'), ('hinge', 'none'),
+                       ('soft01', 'yeti')):
+      cases.append((f'B{b} L{l} {loss} {mode}', long_lists,
+                    static(loss, mode, l=l)))
+  top = _pairwise_inputs(gen, 1, pw.MAX_LIST_SIZE)
+  cases.append((f'top of the domain L{pw.MAX_LIST_SIZE} logistic v1', top,
+                static('logistic', 'v1', l=pw.MAX_LIST_SIZE)))
+  return cases
+
+
+def _check_pairwise_kernels(gen):
+  """Phase 3d: rows 7 and 8 against their plain versions. Returns
+  {wrapper name: (largest abs error, largest share)}."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import pairwise as pw
+  worst = {'pairwise_sums_forward': (0.0, 0.0),
+           'pairwise_sums_backward': (0.0, 0.0)}
+  cases = _pairwise_cases(gen)
+  for name, d, static in cases:
+    ops = [d[k] for k in _PAIR_OPERANDS]
+    got = pw.pairwise_sums_forward(*ops, *static)
+    got_grad = pw.pairwise_sums_backward(*ops, *static, d['ct'])
+    with pw.plain_versions():
+      want = pw.pairwise_sums_forward(*ops, *static)
+      want_grad = pw.pairwise_sums_backward(*ops, *static, d['ct'])
+    torch.cuda.synchronize()
+    if not torch.equal(got[:, 2], want[:, 2]):
+      _fail(f'pairwise {name}: count of non-zero pair weights differs: '
+            f'{got[:, 2].tolist()[:8]} vs {want[:, 2].tolist()[:8]}')
+    if not torch.isfinite(want).all() or not torch.isfinite(want_grad).all():
+      _fail(f'pairwise {name}: the plain version is not finite')
+    for row, pairs in (
+        ('pairwise_sums_forward', ((got[:, 0], want[:, 0]),
+                                   (got[:, 1], want[:, 1]))),
+        ('pairwise_sums_backward', ((got_grad, want_grad),))):
+      for g, w in pairs:
+        err, rel = _rel_err(g, w)
+        if w.abs().max().item() == 0.0:
+          rel = 0.0 if err == 0.0 else math.inf
+        if not rel <= PAIR_TOL:
+          _fail(f'pairwise {name}: {row} differs from the plain version by '
+                f'{err} ({rel:.3g} of its largest value; allowed {PAIR_TOL})')
+        worst[row] = (max(worst[row][0], err), max(worst[row][1], rel))
+    if name.startswith('no-pair'):
+      if got[:2].abs().max().item() != 0 or got_grad[:2].abs().max().item() != 0:
+        _fail(f'pairwise {name}: a list with no pair has a non-zero output')
+  _log(f'kernel vs plain: pairwise rows 7-8, {len(cases)} cases: count '
+       'equal, ' + ', '.join(f'{k} within {v[1]:.3g}'
+                             for k, v in worst.items()))
+  return worst
+
+
+def _check_pairwise_op(gen):
+  """Phase 3e: the whole loss with the kernels against autograd through the
+  plain [B, L, L] path on the card, and against float64 on the CPU."""
+  import torch
+  from ranking_tpu_torch.ops import lambda_weights as lw
+  from ranking_tpu_torch.ops import losses
+  from ranking_tpu_torch.ops import sorting
+  from ranking_tpu_torch.ops.cuda import pairwise as pw
+  d = _pairwise_inputs(gen, B, L)
+  labels, logits, weights = d['labels'], d['logits'], d['norm_w']
+  loss = losses.PairwiseLogisticLoss(
+      lambda_weight=lw.create_ndcg_lambda_weight())
+
+  def run():
+    s = logits.clone().requires_grad_()
+    value = loss(labels, s, weights=weights)
+    value.backward()
+    return value.detach(), s.grad
+
+  pw.reset_launches()
+  got = run()
+  if [fn.launches for fn in pw.KERNEL_WRAPPERS] != [1, 1]:
+    _fail('the pairwise loss did not launch rows 7 and 8 once each')
+  pw.set_enabled(False)
+  try:
+    plain = run()
+  finally:
+    pw.set_enabled(None)
+  # Float64 on the CPU: the same operands (the ranks are those of the
+  # float32 logits) through the plain sums, differentiated by autograd.
+  f64 = lambda t: t.detach().to('cpu', torch.float64)  # noqa: E731
+  clean = torch.where(labels >= 0, labels, 0.0)
+  ideal = torch.sort(f64(clean), dim=1, descending=True).values
+  discount = 1.0 / torch.log1p(torch.arange(1, L + 1, dtype=torch.float64))
+  ideal_dcg = ((torch.pow(2.0, ideal) - 1.0) * discount).sum(1)
+  scale = torch.where(ideal_dcg > 0, L / ideal_dcg, 0.0)
+  s64 = f64(logits).requires_grad_()
+  ranks = sorting.compute_ranks(logits, labels >= 0)
+  sums = pw.pairwise_sums_reference(
+      f64(labels), s64, f64(d['mask']), f64(weights),
+      torch.pow(2.0, f64(clean)) - 1.0, f64(ranks), scale, pw.LOSS_LOGISTIC,
+      pw.LAMBDA_DCG_V1, pw.DISCOUNT_LOG1P_INVERSE, float(L), 0.0)
+  value64 = sums[:, 0].sum() / sums[:, 2].sum()
+  value64.backward()
+  torch.cuda.synchronize()
+  for name, (want_value, want_grad) in (
+      ('autograd through the plain path on the card', plain),
+      ('float64 on the CPU', (value64.detach(), s64.grad))):
+    value_err = abs(got[0].item() - want_value.item()) / abs(want_value.item())
+    _, grad_rel = _rel_err(got[1].cpu(), want_grad.cpu())
+    if not (value_err <= PAIR_TOL and grad_rel <= PAIR_TOL):
+      _fail(f'pairwise loss vs {name}: value off by {value_err:.3g}, '
+            f'dlogits by {grad_rel:.3g} of the largest (allowed {PAIR_TOL})')
+    _log(f'pairwise loss vs {name}: value within {value_err:.3g}, dlogits '
+         f'within {grad_rel:.3g}')
+
+
+def _lambdarank_main_path(gen, eval_batches, fns):
+  """Phase 10. Returns (launch counts [sort, rows 2-6, rows 7-8] of the 8
+  steps, trained state, step fn, batch)."""
+  import copy
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import lambda_weights as lw
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+  from ranking_tpu_torch.pipeline import serving
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  model = _train_model(gen)
+  twin = copy.deepcopy(model)
+  batch = dataset.flatten_examples(_make_batch(gen, B))
+  step = steps.make_train_step(loss_registry.make_loss_fn(
+      'pairwise_logistic_loss', lambda_weight=lw.create_ndcg_lambda_weight()),
+                               device='cuda')
+
+  # The main path of this slice: every count starts at 0 here.
+  fused_bn.reset_launches()
+  pairwise.reset_launches()
+  cuda_sort.sorted_values_and_ranks.launches = 0
+  state = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                       device='cuda')
+  losses = []
+  for i in range(TRAIN_STEPS):
+    state, metrics = step(state, batch)
+    losses.append(metrics['loss'].item())
+    if i == 0:
+      first_grads, first_stats = _snapshot_first_step(state)
+  counts = _all_launch_counts()
+  # The other pairwise recipes, one step each on the trained state; the
+  # last with a seeded generator, which shuffles rank ties.
+  others = {
+      'pairwise_hinge_loss + label diff': (
+          dict(loss_keys='pairwise_hinge_loss',
+               lambda_weight=lw.LabelDiffLambdaWeight()), None),
+      'pairwise_soft_zero_one_loss': (
+          dict(loss_keys='pairwise_soft_zero_one_loss'), None),
+      'pairwise_logistic_loss + ndcg v2 top 10, shuffled ties': (
+          dict(loss_keys='pairwise_logistic_loss',
+               lambda_weight=lw.create_ndcg_lambda_weight_v2(topn=10)),
+          torch.Generator(device='cuda').manual_seed(SEED)),
+  }
+  other_losses = {}
+  for name, (config, generator) in others.items():
+    before = [fn.launches for fn in pairwise.KERNEL_WRAPPERS]
+    other_step = steps.make_train_step(loss_registry.make_loss_fn(**config),
+                                       device='cuda')
+    state, metrics = other_step(state, batch, generator)
+    other_losses[name] = metrics['loss'].item()
+    if [fn.launches for fn in pairwise.KERNEL_WRAPPERS] != [
+        n + 1 for n in before]:
+      _fail(f'lambdarank: a step of {name} did not launch rows 7 and 8 once')
+  trained_eval = serving.evaluate_dataset(state.model, None, eval_batches,
+                                          metric_fns=fns, device='cuda')
+  torch.cuda.synchronize()
+
+  if not all(math.isfinite(v) for v in losses + list(other_losses.values())):
+    _fail(f'lambdarank: a loss is not finite: {losses} {other_losses}')
+  if not losses[-1] < losses[0]:
+    _fail(f'lambdarank: the loss did not fall in {TRAIN_STEPS} steps on a '
+          f'repeated batch: {losses}')
+  per_step = [c / TRAIN_STEPS for c in counts]
+  if per_step != [1, 3, 1, 2, 0, 0, 1, 1]:
+    _fail(f'lambdarank: launches per step {per_step} != [1, 3, 1, 2, 0, 0, 1, '
+          '1] for the sort, rows 2-6 and rows 7-8')
+  for name, value in trained_eval.items():
+    if not 0.0 <= value <= 1.0:
+      _fail(f'eval of the lambdarank model: {name} = {value} outside [0, 1]')
+  _log(f'lambdarank: {TRAIN_STEPS} steps of pairwise_logistic_loss + ndcg at '
+       f'B={B}, L={L}, F={F}, loss {losses[0]:.6f} -> {losses[-1]:.6f}; '
+       f'launches per step {per_step} (sort, rows 2-6, rows 7-8); then '
+       + ', '.join(f'{k} {v:.6f}' for k, v in other_losses.items())
+       + '; trained model eval: '
+       + ', '.join(f'{k} {v:.4f}' for k, v in trained_eval.items()))
+  _hold_first_step('lambdarank', step, twin, batch, losses[0], first_grads,
+                   first_stats)
+  return counts, state, step, batch
+
+
+def _long_list_step(gen):
+  """Phase 11: one train step at B=16, L=1024 without batch norm, with the
+  pairwise kernels and with the switch off. Returns peak device memory."""
+  import copy
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import lambda_weights as lw
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  model = _train_model(gen, use_batch_norm=False)
+  batch = dataset.flatten_examples(
+      _make_batch(gen, LONG_B, min_len=LONG_L // 10, l=LONG_L)).to(
+          torch.device('cuda'))
+  step = steps.make_train_step(loss_registry.make_loss_fn(
+      'pairwise_logistic_loss', lambda_weight=lw.create_ndcg_lambda_weight()),
+                               device='cuda')
+  out = {}
+  for name, switch in (('kernel', None), ('plain_path', False)):
+    state = state_lib.create_train_state(copy.deepcopy(model),
+                                         state_lib.adam(1e-3), device='cuda')
+    pairwise.set_enabled(switch)
+    pairwise.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+      state, metrics = step(state, batch)
+    finally:
+      pairwise.set_enabled(None)
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in pairwise.KERNEL_WRAPPERS]
+    if launches != ([1, 1] if switch is None else [0, 0]):
+      _fail(f'long lists, {name}: rows 7-8 launched {launches}')
+    out[name] = dict(
+        loss=metrics['loss'].item(),
+        grads={k: p.grad.clone() for k, p in state.model.named_parameters()},
+        peak_mb=(torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+  loss_err = abs(out['kernel']['loss'] - out['plain_path']['loss']) / abs(
+      out['plain_path']['loss'])
+  worst = 0.0
+  for k, w in out['plain_path']['grads'].items():
+    g = out['kernel']['grads'][k]
+    if w.abs().max().item() < 1e-6:
+      # Zero in theory: a pairwise loss does not move with a shift of all
+      # logits, so the output bias gets rounding noise on both sides.
+      if (g - w).abs().max().item() > 1e-6:
+        _fail(f'long lists: zero gradient {k} off by more than 1e-6')
+      continue
+    worst = max(worst, ((g - w).norm() / w.norm()).item())
+  if not (math.isfinite(out['kernel']['loss']) and loss_err <= 1e-5
+          and worst <= 1e-5):
+    _fail(f'long lists: kernel step vs the [B, L, L] path: loss off by '
+          f'{loss_err:.3g} (allowed 1e-5), gradients by {worst:.3g} in norm '
+          '(allowed 1e-5)')
+  _log(f'long lists: train step at B={LONG_B}, L={LONG_L} without batch norm: '
+       f'loss within {loss_err:.3g} and gradients within {worst:.3g} in norm '
+       f'of the [B, L, L] path; peak device memory above the resident state '
+       f"{out['kernel']['peak_mb']:.1f} MiB with the kernels, "
+       f"{out['plain_path']['peak_mb']:.1f} MiB without")
+  return {'long_list_step_kernel_peak_mib': out['kernel']['peak_mb'],
+          'long_list_step_plain_path_peak_mib': out['plain_path']['peak_mb']}
+
+
+# Work that the function needs for one preference pair (l_i > l_j, both
+# items unmasked): (float operations, special-function results). Ranks are
+# whole numbers in [1, L], so the discount terms of a DCG weight
+# (|D(k) - D(k + 1)|, 1 / (1 - D(r)), the capped D(r)) count as reads of an
+# L-entry table: the weight is the gain difference and the products of its
+# factors, with no special function. The loss needs exp and log (logistic),
+# exp and a reciprocal (soft zero-one, and both sigmoid gradients) or
+# neither (hinge); each counts one special-function result. The backward
+# needs l'(d) once per preference pair, added to one item and taken from the
+# other. Every one of the L^2 ordered pairs costs one label compare besides.
+# csrc/pairwise.cu spends more than this (it evaluates the discounts per
+# pair and its backward visits a pair from both rows): the bound is the
+# function's, not that kernel's.
+_PAIR_WORK = {
+    'weight': {'none': (1, 0), 'labeldiff': (3, 0), 'v2': (4, 0),
+               'v1': (6, 0), 'yeti': (4, 0)},
+    'forward': {'logistic': (9, 2), 'hinge': (4, 0), 'soft01': (5, 2)},
+    'backward': {'logistic': (5, 2), 'hinge': (4, 0), 'soft01': (7, 2)},
+}
+
+
+def _pairwise_bounds(d, loss, mode, backward):
+  """(bound_ms, bound_by) of one call on the operands ``d``: the bytes
+  (each input that the mode reads once, the output written once) over the
+  HBM rate against this data's operations over the float32 rate and its
+  special-function results over that unit's rate."""
+  b, l = d['labels'].shape
+  lab, m = d['labels'], d['mask'] > 0
+  pref = ((lab[:, :, None] > lab[:, None, :]) & m[:, :, None]
+          & m[:, None, :]).sum().item()
+  flops, sfu = (x + y for x, y in zip(
+      _PAIR_WORK['weight'][mode],
+      _PAIR_WORK['backward' if backward else 'forward'][loss]))
+  # labels, logits, mask, item weights; gain, ranks and scale in a DCG mode.
+  words_in = 6 * b * l + b if mode in ('v2', 'v1', 'yeti') else 4 * b * l
+  byte_count = (words_in + (b * l + b * 3 if backward else b * 3)) * 4
+  op_count = b * l * l + pref * flops
+  return max((byte_count / HBM_BYTES_PER_S * 1e3, 'bytes'),
+             (op_count / F32_OPS_PER_S * 1e3, 'operations'),
+             (pref * sfu / SFU_OPS_PER_S * 1e3, 'operations'))
+
+
+def _time_pairwise(gen):
+  """Phase 12a: {wrapper name: {case: {'ms', 'plain_ms', 'bound_ms',
+  'bound_by'}}}; device time per call from CUDA graph replays."""
+  from ranking_tpu_torch.ops.cuda import pairwise as pw
+  modes = {'none': pw.LAMBDA_NONE, 'v1': pw.LAMBDA_DCG_V1}
+  out = {'pairwise_sums_forward': {}, 'pairwise_sums_backward': {}}
+  for b, l in ((B, L), (LONG_B, LONG_L)):
+    d = _pairwise_inputs(gen, b, l)
+    ops = [d[k] for k in _PAIR_OPERANDS]
+    for mode, mode_id in modes.items():
+      static = (pw.LOSS_LOGISTIC, mode_id, pw.DISCOUNT_LOG1P_INVERSE,
+                float(l), 0.0)
+      calls = {
+          'pairwise_sums_forward':
+              lambda: pw.pairwise_sums_forward(*ops, *static),
+          'pairwise_sums_backward':
+              lambda: pw.pairwise_sums_backward(*ops, *static, d['ct'])}
+      for row, fn in calls.items():
+        ms = _graph_ms(fn, calls=5, replays=10)
+        with pw.plain_versions():
+          plain_ms = _graph_ms(fn, calls=5, replays=10)
+        bound_ms, bound_by = _pairwise_bounds(
+            d, 'logistic', mode, row.endswith('backward'))
+        out[row][f'B{b}xL{l} logistic {mode}'] = {
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by}
+  return out
 
 
 def main():
@@ -683,6 +1169,7 @@ def main():
   from ranking_tpu_torch.models import layers
   from ranking_tpu_torch.ops.cuda import build
   from ranking_tpu_torch.ops.cuda import fused_bn
+  from ranking_tpu_torch.ops.cuda import pairwise
   from ranking_tpu_torch.ops.cuda import sort as cuda_sort
   from ranking_tpu_torch.pipeline import serving
   from ranking_tpu_torch.train import steps
@@ -699,11 +1186,13 @@ def main():
 
   # Phase 2: build, one nvcc per source, side by side.
   t0 = time.perf_counter()
-  build.compile_libraries(['sort', 'fused_bn_fwd', 'fused_bn_bwd'])
+  sources = ['sort', 'fused_bn_fwd', 'fused_bn_bwd', 'pairwise']
+  build.compile_libraries(sources)
   cuda_sort._kernel()
   fused_bn.build_kernels()
+  pairwise.build_kernels()
   build_s = time.perf_counter() - t0
-  _log(f'build: 3 kernel sources in {build_s:.2f} s ('
+  _log(f'build: {len(sources)} kernel sources in {build_s:.2f} s ('
        + ', '.join(f'{k} {v:.1f} s' for k, v in build.BUILD_SECONDS.items())
        + ')')
 
@@ -737,6 +1226,10 @@ def main():
   # Phase 3b, 3c: the fused masked-BN functions and the whole op.
   fused_errs = _check_fused_kernels(gen)
   _check_fused_op(gen)
+
+  # Phase 3d, 3e: the fused pairwise sums and the whole pairwise loss.
+  pair_errs = _check_pairwise_kernels(gen)
+  _check_pairwise_op(gen)
 
   # Phase 4: the main path. Counts start at 0 here.
   model = _flagship_model(gen)
@@ -843,10 +1336,19 @@ def main():
       gen, eval_batches, fns)
   second_counts = _second_path(gen)
   fused_times = _time_fused(gen)
-  train_times, train_fn = _time_train_step(state, train_step, train_batch)
+  train_times, train_fn = _time_train_step(state, train_step, train_batch,
+                                           fused_bn)
+  # Phases 10-12: the LambdaRank path, long lists, and their times.
+  rank_counts, rank_state, rank_step, rank_batch = _lambdarank_main_path(
+      gen, eval_batches, fns)
+  long_list_memory = _long_list_step(gen)
+  pair_times = _time_pairwise(gen)
+  rank_times, rank_fn = _time_train_step(rank_state, rank_step, rank_batch,
+                                         pairwise, prefix='lambdarank')
   timings = {
       'build_s': build_s,
       'fused': fused_times, **train_times,
+      'pairwise': pair_times, **rank_times, **long_list_memory,
       'sort_kernel_ms': kernel_ms, 'sort_plain_ms': plain_ms,
       'sort_library_ms': library_ms, 'sort_bound_ms': bound_ms,
       'sort_eager_ms': sort_eager_ms,
@@ -858,9 +1360,9 @@ def main():
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
-    # Phase 7 (optional): the kernel's resources and where the device
-    # time of an eval step and a serve request goes.
-    for source in ('sort', 'fused_bn_fwd', 'fused_bn_bwd'):
+    # Phase 13 (optional): the kernels' resources and where the device
+    # time of an eval step, a serve request and the train steps goes.
+    for source in sources:
       log = build.compile_library(source, ('-Xptxas', '-v')) + '.log'
       with open(log) as f:
         _log(f'ptxas {source}: ' + ' | '.join(
@@ -871,18 +1373,24 @@ def main():
          eval_step_ms),
         ('serve_b128', lambda: predictor.score_batch(requests[-1]),
          serve_ms),
-        ('train_step', train_fn, train_times['train_step_fused_host_ms'])):
+        ('train_step', train_fn, train_times['train_step_fused_host_ms']),
+        ('lambdarank_train_step', rank_fn,
+         rank_times['lambdarank_step_fused_host_ms'])):
       prof = _profile(fn)
       prof['host_ms'] = host_ms
       prof['device_idle_share'] = 1.0 - prof['device_ms'] / host_ms
-      prof['by_name_ms'] = dict(list(prof['by_name_ms'].items())[:12])
+      # The 12 busiest kernels, and the port's own whatever their share.
+      prof['by_name_ms'] = {
+          k: v for i, (k, v) in enumerate(prof['by_name_ms'].items())
+          if i < 12 or 'pairwise_' in k or 'rank_sort' in k}
       _log(json.dumps({'profile': name, **prof}))
 
   kernels = [{
       'name': 'sorted_values_and_ranks', 'route': 'cuda',
       'source': 'ranking_tpu_torch/ops/cuda/csrc/sort.cu',
       'replaces': 'ranking_tpu/ops/pallas/sort.py:115',
-      'launches': launches, 'max_abs_err': max_abs_err, 'check': 'bitwise',
+      'launches': launches, 'launches_lambdarank_path': rank_counts[0],
+      'max_abs_err': max_abs_err, 'check': 'bitwise',
       'ms': kernel_ms, 'eager_ms': sort_eager_ms['kernel'], 'plain_ms': plain_ms, 'bound_ms': bound_ms,
       'bound_by': bound_by, 'library_ms': library_ms}]
   # Rows 2-6. `ms`, `plain_ms` and `bound_ms` add up the calls that one
@@ -902,6 +1410,7 @@ def main():
                   + ('fwd.cu' if name == 'layer_forward' else 'bwd.cu'),
         'replaces': f'ranking_tpu/ops/pallas/fused_bn.py:{line}',
         'launches': launches_of[name],
+        'launches_lambdarank_path': rank_counts[1 + list(replaces).index(name)],
         'max_abs_err': fused_errs[name]['float32'][0],
         'max_rel_err': fused_errs[name]['float32'][1],
         'max_rel_err_bf16': fused_errs[name]['bfloat16'][1],
@@ -909,6 +1418,26 @@ def main():
         'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
         'bound_by': t['bound_by'], 'library_ms': None,
         'ms_by_shape': t['ms_by_shape']})
+  # Rows 7-8. `ms`, `plain_ms` and `bound_ms` are those of the call the
+  # LambdaRank path makes (B128xL200, logistic, the NDCG weight);
+  # `ms_by_case` has the other shapes and modes. No single PyTorch call
+  # computes sums over all pairs of a list under a lambda weight, so there
+  # is no library time.
+  main_case = f'B{B}xL{L} logistic v1'
+  for i, (name, line) in enumerate((('pairwise_sums_forward', 275),
+                                    ('pairwise_sums_backward', 304))):
+    t = pair_times[name][main_case]
+    kernels.append({
+        'name': name, 'route': 'cuda',
+        'source': 'ranking_tpu_torch/ops/cuda/csrc/pairwise.cu',
+        'replaces': f'ranking_tpu/ops/pallas/pairwise.py:{line}',
+        'launches': rank_counts[6 + i],
+        'max_abs_err': pair_errs[name][0], 'max_rel_err': pair_errs[name][1],
+        'check': 'count exact; sums and dlogits as a share of the largest '
+                 'value, PAIR_TOL',
+        'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': t['bound_by'], 'library_ms': None,
+        'ms_by_case': {k: v['ms'] for k, v in pair_times[name].items()}})
   print(card)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

@@ -4,7 +4,8 @@ The port's copy of ``ranking_tpu/train/steps.py``:
 
 * ``train_step(state, batch, generator=None) -> (state, metrics)``: forward
   in train mode, loss, backward, optimizer update and the batch-statistics
-  update, in place on ``state.model`` and ``state.optimizer``;
+  update, in place on ``state.model`` and ``state.optimizer``; the
+  generator feeds dropout and the loss's tie shuffles;
 * ``eval_step(model, batch, metric_states) -> (metric_states, logits)``:
   forward in eval mode, every metric streamed into a ``MeanState``.
 
@@ -64,14 +65,16 @@ def _make_total_loss(loss_fn, multi_task_weights):
         f'{sorted(set(multi_task_weights) - set(loss_fn))}; '
         f'tasks are {sorted(loss_fn)}')
 
-  def _total_loss(labels, logits, features):
+  def _total_loss(labels, logits, features, generator=None):
+    # Every task draws from the one generator in turn.
     if isinstance(loss_fn, Mapping):
       total = 0.0
       for task, fn in sorted(loss_fn.items()):
         w = 1.0 if not multi_task_weights else multi_task_weights.get(task, 1.)
-        total = total + w * fn(labels[task], logits[task], features=features)
+        total = total + w * fn(labels[task], logits[task], features=features,
+                               generator=generator)
       return total
-    return loss_fn(labels, logits, features=features)
+    return loss_fn(labels, logits, features=features, generator=generator)
 
   return _total_loss
 
@@ -98,12 +101,14 @@ def make_train_step(
 ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
   """Builds ``train_step(state, batch, generator=None) -> (state, metrics)``.
 
-  ``loss_fn(labels, logits, features=None) -> scalar`` as built by
-  ``ops.loss_registry.make_loss_fn``; for multi-task models pass a dict
-  ``{task: loss_fn}`` and the batch carries dict labels. The batch moves to
-  ``device``; the state (``train.state.create_train_state``) must already
-  be there. ``generator`` (on ``device``) draws the dropout masks; a model
-  without dropout needs none.
+  ``loss_fn(labels, logits, features=None, generator=None) -> scalar`` as
+  built by ``ops.loss_registry.make_loss_fn``; for multi-task models pass a
+  dict ``{task: loss_fn}`` and the batch carries dict labels. The batch
+  moves to ``device``; the state (``train.state.create_train_state``) must
+  already be there. ``generator`` (on ``device``) is the step's one random
+  stream, where the JAX step splits a key four ways: the forward draws its
+  dropout masks from it, then the loss its tie shuffles. None means no
+  dropout (a model with dropout raises) and deterministic ties.
 
   The step updates ``state`` in place and returns it: parameters and
   optimizer moments by the optimizer, running batch statistics by the
@@ -119,7 +124,7 @@ def make_train_step(
     extra = {} if generator is None else {'generator': generator}
     logits = state.model(batch.context, batch.examples, batch.mask,
                          training=True, **extra)
-    loss = _total_loss(batch.labels, logits, batch.features)
+    loss = _total_loss(batch.labels, logits, batch.features, generator)
     loss.backward()
     state.optimizer.step()
     state.step += 1

@@ -13,7 +13,10 @@ import torch
 
 Tensor = torch.Tensor
 
-_LOG2 = math.log(2.0)
+# A 0-d tensor, so that log(2) / x is one true division as in the JAX
+# package (a Python float on the left would become reciprocal(x) * log(2),
+# rounded twice). It mixes with tensors of any device and float type.
+_LOG2 = torch.tensor(math.log(2.0), dtype=torch.float64)
 
 
 def identity(x: Tensor) -> Tensor:

@@ -6,9 +6,13 @@ data model is the framework's: labels ``[B, L]`` padded with -1.0 (invalid
 <=> label < 0), scores ``[B, L]``, example features ``[B, L, F]`` and an
 optional boolean ``mask [B, L]``.
 
-Sorting is deterministic: equal scores keep their position (stable
-descending order) and invalid items go last. Random tie-breaking belongs
-to the training path and is not ported yet.
+Sorting is deterministic by default: equal scores keep their position
+(stable descending order) and invalid items go last. With a
+``torch.Generator`` (the JAX package's ``key``), ``sort_by_scores`` and
+``sorted_ranks`` break ties at random, as the training-time lambda weights
+want: the call then takes the plain path, past the kernel and the shared
+sort scope. The generator's numbers are not JAX's, so the two packages
+agree on the deterministic calls and on the properties of the random ones.
 """
 
 from __future__ import annotations
@@ -61,6 +65,18 @@ def is_label_valid(labels: Tensor) -> Tensor:
   return labels >= 0.0
 
 
+def _shuffle_order(shape: Tuple[int, int], mask: Optional[Tensor],
+                   generator: torch.Generator, device) -> Tensor:
+  """Per-row permutation that shuffles every list and pushes masked
+  entries last: uniform keys in [0, 1), 2.0 added on masked entries, a
+  stable argsort."""
+  values = torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device).to(device)
+  if mask is not None:
+    values = torch.where(mask.to(torch.bool), values, values + 2.0)
+  return torch.argsort(values, dim=1, stable=True)
+
+
 def _kernel_sort_ok(scores: Tensor, features_list: Sequence[Tensor]) -> bool:
   """Whether the CUDA sort kernel takes this call.
 
@@ -82,6 +98,7 @@ def sort_by_scores(
     features_list: Sequence[Tensor],
     topn: Optional[int] = None,
     mask: Optional[Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> List[Tensor]:
   """Sorts each feature tensor per list by descending ``scores``.
 
@@ -90,6 +107,8 @@ def sort_by_scores(
     features_list: tensors of shape ``[B, L]`` or ``[B, L, ...]``.
     topn: cutoff; output lists have length ``min(topn, L)``.
     mask: optional ``[B, L]`` bool; invalid entries are pushed to the end.
+    generator: optional source of random tie-breaking (training-time parity
+      with the reference's ``shuffle_ties=True``). None = deterministic.
 
   Returns:
     List of tensors shaped ``[B, topn, ...]`` sorted by score.
@@ -97,6 +116,19 @@ def sort_by_scores(
   scores = scores.to(torch.float32)
   list_size = scores.shape[1]
   topn = list_size if topn is None else min(topn, list_size)
+
+  if generator is not None:
+    # The list is shuffled, the shuffled scores are sorted stably, and the
+    # order is mapped back: ties land in the shuffle's order.
+    if mask is not None:
+      scores = torch.where(mask.to(torch.bool), scores, scores.min())
+    shuffle = _shuffle_order(tuple(scores.shape), mask, generator,
+                             scores.device)
+    shuffled = torch.gather(scores, 1, shuffle)
+    order = torch.sort(shuffled, dim=1, descending=True,
+                       stable=True).indices[:, :topn]
+    order = torch.gather(shuffle, 1, order)
+    return [gather_per_row(f, order) for f in features_list]
 
   cache = getattr(_SORT_SCOPE, 'cache', None)
   if cache is not None:
@@ -129,14 +161,16 @@ def sort_by_scores(
   return [gather_per_row(f, order) for f in features_list]
 
 
-def sorted_ranks(scores: Tensor) -> Tensor:
+def sorted_ranks(scores: Tensor,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
   """1-based int32 rank of each item when its list is sorted by descending
-  score; ties are broken by position. ``[[1.0, 3.5, 2.1]]`` -> ``[[3, 1,
-  2]]``."""
+  score; ties are broken by position, or at random with a ``generator``.
+  ``[[1.0, 3.5, 2.1]]`` -> ``[[3, 1, 2]]``."""
   batch, list_size = scores.shape
   positions = torch.arange(list_size, device=scores.device).expand(
       batch, list_size)
-  sorted_positions = sort_by_scores(scores, [positions])[0]
+  sorted_positions = sort_by_scores(scores, [positions],
+                                    generator=generator)[0]
   return (torch.argsort(sorted_positions, dim=1, stable=True) + 1).to(
       torch.int32)
 

@@ -9,7 +9,10 @@ conftest is left out):
 import pytest
 import torch
 
+from ranking_tpu_torch.ops import lambda_weights as lw
+from ranking_tpu_torch.ops import losses
 from ranking_tpu_torch.ops.cuda import fused_bn
+from ranking_tpu_torch.ops.cuda import pairwise
 from ranking_tpu_torch.ops.cuda import sort as cuda_sort
 from ranking_tpu_torch.utils import list_ops
 
@@ -185,3 +188,76 @@ def test_fused_wrappers_refuse_what_the_kernels_cannot_take(dev):
                            torch.zeros(4, device=dev),
                            torch.zeros(5, 2, device=dev),
                            torch.zeros(2, device=dev), relu_in=False)
+
+
+# --- the fused pairwise sums (rows 7 and 8 of the kernel table) -------------
+
+
+def _pairwise_case(dev, b, l, seed):
+  gen = torch.Generator().manual_seed(seed)
+  labels = torch.randint(0, 5, (b, l), generator=gen).float()
+  valid = torch.rand(b, l, generator=gen) > 0.2
+  labels = torch.where(valid, labels, -1.0)
+  logits = torch.randn(b, l, generator=gen) * 2
+  weights = torch.where(valid, torch.rand(b, l, generator=gen) + 0.1, 0.0)
+  gain = torch.pow(2.0, labels.clamp(min=0)) - 1.0
+  ranks = torch.argsort(torch.rand(b, l, generator=gen), dim=1).float() + 1.0
+  scale = torch.rand(b, generator=gen) * 2 + 0.5
+  ct = torch.randn(b, 3, generator=gen)
+  return [t.to(dev) for t in (labels, logits, valid.float(), weights, gain,
+                              ranks, scale, ct)]
+
+
+@pytest.mark.parametrize('b,l', [(128, 200), (5, 11), (3, 1), (2, 1030)])
+@pytest.mark.parametrize('lambda_mode', range(5))
+@pytest.mark.parametrize('loss_type', range(3))
+def test_pairwise_rows_equal_plain_versions(dev, loss_type, lambda_mode, b, l):
+  *ops, ct = _pairwise_case(dev, b, l, seed=l + lambda_mode)
+  static = (loss_type, lambda_mode, pairwise.DISCOUNT_LOG1P_INVERSE, 10.0,
+            0.25 if lambda_mode == pairwise.LAMBDA_DCG_V1 else 0.0)
+  got = pairwise.pairwise_sums_forward(*ops, *static)
+  got_grad = pairwise.pairwise_sums_backward(*ops, *static, ct)
+  with pairwise.plain_versions():
+    want = pairwise.pairwise_sums_forward(*ops, *static)
+    want_grad = pairwise.pairwise_sums_backward(*ops, *static, ct)
+  torch.cuda.synchronize()
+  assert torch.equal(got[:, 2], want[:, 2])   # the count: exact
+  _assert_close(got[:, :2], want[:, :2], 1e-5)
+  _assert_close(got_grad, want_grad, 1e-5)
+
+
+def test_pairwise_loss_launches_and_matches_the_plain_path(dev):
+  labels, logits, _, weights, *_ = _pairwise_case(dev, 16, 300, seed=5)
+  loss = losses.PairwiseLogisticLoss(
+      lambda_weight=lw.create_ndcg_lambda_weight())
+
+  def run():
+    s = logits.clone().requires_grad_()
+    value = loss(labels, s, weights=weights)
+    value.backward()
+    return value.detach(), s.grad
+
+  pairwise.reset_launches()
+  got = run()
+  assert [fn.launches for fn in pairwise.KERNEL_WRAPPERS] == [1, 1]
+  pairwise.set_enabled(False)
+  try:
+    want = run()
+  finally:
+    pairwise.set_enabled(None)
+  assert [fn.launches for fn in pairwise.KERNEL_WRAPPERS] == [1, 1]
+  torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+  _assert_close(got[1], want[1], 1e-5)
+
+
+def test_pairwise_wrappers_refuse_what_the_kernels_cannot_take(dev):
+  too_long = torch.zeros(1, pairwise.MAX_LIST_SIZE + 1, device=dev)
+  assert pairwise.enabled(too_long)   # the default on the card: the kernels
+  with pytest.raises(ValueError, match='shared memory'):
+    losses.PairwiseHingeLoss()(too_long, too_long)
+  pairwise.set_enabled(False)         # the plain path only when asked for
+  try:
+    value = losses.PairwiseHingeLoss()(too_long[:, :64], too_long[:, :64])
+  finally:
+    pairwise.set_enabled(None)
+  assert value.item() == 0.0

@@ -5,7 +5,9 @@ Three steps of ``make_train_step`` (DNNScorer with batch norm, 'log1p',
 weights on the same numpy batches, on both BN paths; the loss, the sanity
 metrics, every parameter and the running statistics are compared after each
 step (rtol 1e-5; atol 1e-6, and 5e-6 on parameters: float32 sums in another
-order, chained through a backward pass).
+order, chained through a backward pass). Two steps of the LambdaRank recipe
+(``pairwise_logistic_loss`` with the NDCG lambda weight) are held the same
+way, with the port's fused pairwise sums on and off.
 
 Adam's eps is 1e-3 in that test, in both packages. This model has
 parameters whose true gradient is zero: a Dense bias in front of a batch
@@ -28,6 +30,7 @@ import torch
 
 from ranking_tpu.data import batch as jax_batch
 from ranking_tpu.models import scorers as jax_scorers
+from ranking_tpu.ops import lambda_weights as jax_lw
 from ranking_tpu.ops import loss_registry as jax_registry
 from ranking_tpu.ops.pallas import fused_bn as jfb
 from ranking_tpu.train import state as jax_state
@@ -36,8 +39,10 @@ from ranking_tpu_torch import convert
 from ranking_tpu_torch.data import batch as batch_lib
 from ranking_tpu_torch.data import dataset
 from ranking_tpu_torch.models import layers, scorers
+from ranking_tpu_torch.ops import lambda_weights as lw
 from ranking_tpu_torch.ops import loss_registry
 from ranking_tpu_torch.ops.cuda import fused_bn as tfb
+from ranking_tpu_torch.ops.cuda import pairwise as tpw
 from ranking_tpu_torch.train import state as state_lib
 from ranking_tpu_torch.train import steps
 
@@ -80,12 +85,14 @@ def _assert_trees_close(got, want, atol):
                                atol=atol, err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize('fused', [True, False])
-def test_three_train_steps_match_jax(fused):
+def _assert_steps_match(jloss_fn, tloss_fn, fused, num_steps, logit_scale=1.0):
+  """Runs ``num_steps`` train steps in both packages from the same weights
+  on the same batches and compares the metrics, the parameters and the
+  running statistics after each."""
   jfb.set_enabled(fused)
   tfb.set_enabled(fused)
   try:
-    batches = _batches(3)
+    batches = _batches(num_steps)
     jmodel = jax_scorers.RankingModel(
         scorer=jax_scorers.DNNScorer(hidden_layer_dims=HIDDEN, dropout=0.0,
                                      input_grad=False),
@@ -96,11 +103,15 @@ def test_three_train_steps_match_jax(fused):
         jmodel, tx, jax.random.PRNGKey(0), {}, {'x': x0}, jnp.asarray(m0))
     variables = _randomized(
         jax.tree.map(np.asarray, dict(jstate.variables)), 1)
+    # A smaller output layer keeps the logits small where a test wants that.
+    tower = variables['params']['scorer']['Tower_0']
+    out_layer = f'Dense_{len(HIDDEN)}'
+    tower[out_layer] = jax.tree.map(lambda a: a * np.float32(logit_scale),
+                                    tower[out_layer])
     jstate = jstate.replace(params=variables['params'],
                             batch_stats=variables['batch_stats'],
                             opt_state=tx.init(variables['params']))
-    jstep = jax.jit(jax_steps.make_train_step(
-        jax_registry.make_loss_fn('softmax_loss')))
+    jstep = jax.jit(jax_steps.make_train_step(jloss_fn))
 
     tmodel = scorers.RankingModel(
         scorers.DNNScorer(HIDDEN, in_features=F, dropout=0.0,
@@ -108,8 +119,7 @@ def test_three_train_steps_match_jax(fused):
     tmodel.load_state_dict(convert.from_flax(variables))
     tstate = state_lib.create_train_state(
         tmodel, state_lib.adam(1e-3, eps=1e-3), device='cpu')
-    tstep = steps.make_train_step(
-        loss_registry.make_loss_fn('softmax_loss'), device='cpu')
+    tstep = steps.make_train_step(tloss_fn, device='cpu')
 
     for i, (x, labels, mask) in enumerate(batches):
       jb = jax_batch.RankingBatch(context={}, examples={'x': jnp.asarray(x)},
@@ -126,9 +136,40 @@ def test_three_train_steps_match_jax(fused):
       tree = convert.to_flax(tstate.model.state_dict())
       _assert_trees_close(tree['params'], jstate.params, atol=5e-6)
       _assert_trees_close(tree['batch_stats'], jstate.batch_stats, atol=1e-6)
+    return got
   finally:
     jfb.set_enabled(None)
     tfb.set_enabled(None)
+
+
+@pytest.mark.parametrize('fused', [True, False])
+def test_three_train_steps_match_jax(fused):
+  _assert_steps_match(jax_registry.make_loss_fn('softmax_loss'),
+                      loss_registry.make_loss_fn('softmax_loss'), fused, 3)
+
+
+@pytest.mark.parametrize('fused_pairwise', [True, False])
+def test_lambdarank_train_step_matches_jax(fused_pairwise):
+  """``pairwise_logistic_loss`` with the NDCG lambda weight: two steps, the
+  same tolerances as the softmax step. The JAX step always hands its loss a
+  key, which shuffles rank ties; the port's step runs with no generator.
+  With distinct, small logits (the output layer is scaled by 0.1, so that
+  the row minimum minus 1e-6 stays below the minimum in float32) only the
+  invalid items tie, and they carry no pair weight. The port's fused sums
+  are forced on (their plain version, on the CPU) and off."""
+  tpw.set_enabled(fused_pairwise)
+  try:
+    got = _assert_steps_match(
+        jax_registry.make_loss_fn(
+            'pairwise_logistic_loss',
+            lambda_weight=jax_lw.create_ndcg_lambda_weight()),
+        loss_registry.make_loss_fn(
+            'pairwise_logistic_loss',
+            lambda_weight=lw.create_ndcg_lambda_weight()),
+        fused=True, num_steps=2, logit_scale=0.1)
+    assert got['loss'].item() > 0
+  finally:
+    tpw.set_enabled(None)
 
 
 def test_adam_matches_optax_over_five_steps():
@@ -186,10 +227,19 @@ def test_total_loss_over_tasks():
     steps.make_train_step({'a': lambda *a, **k: 0.0}, {'b': 1.0},
                           device='cpu')
   total = steps._make_total_loss(
-      {'a': lambda l, s, features=None: s.sum(),
-       'b': lambda l, s, features=None: 2 * s.sum()}, {'b': 0.5})
+      {'a': lambda l, s, features=None, generator=None: s.sum(),
+       'b': lambda l, s, features=None, generator=None: 2 * s.sum()},
+      {'b': 0.5})
   logits = {'a': torch.ones(2), 'b': torch.ones(3)}
   assert total({'a': None, 'b': None}, logits, None).item() == 2 + 3
+  # Every task's loss is handed the step's generator.
+  seen = []
+  total = steps._make_total_loss(
+      {'a': lambda l, s, features=None, generator=None:
+       seen.append(generator) or s.sum()}, None)
+  gen = torch.Generator()
+  total({'a': None}, logits, None, gen)
+  assert seen == [gen]
   # A batch with per-task labels moves between devices like any other.
   tasks = batch_lib.RankingBatch(context={}, examples={},
                                  labels={'a': torch.zeros(1, 2)},
