@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving, eval and training paths on one CUDA
-card.
+"""Drives the PyTorch port's serving, eval, training and sparse embedding
+training paths on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero before the last line is printed):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the four kernel sources of
+2. build: compiles the five kernel sources of
    ``ranking_tpu_torch/ops/cuda/csrc`` side by side (the sort, the fused
-   masked-BN tower's forward and its backward, the fused pairwise sums);
+   masked-BN tower's forward and its backward, the fused pairwise sums, the
+   row scatter);
 3. kernel vs plain: the CUDA sort against ``sorted_values_and_ranks_reference``
    on the card, required bitwise equal (ranks and sorted values), at the
    flagship shape (B=128, L=200, K=2, topn 1/5/10/200), with score ties,
@@ -30,7 +31,12 @@ Phases (any failure exits non-zero before the last line is printed):
    ``PAIR_TOL`` of the output's largest value); and the whole
    ``PairwiseLogisticLoss`` with the NDCG lambda weight against autograd
    through the ``[B, L, L]`` path on the card and against float64 on the
-   CPU;
+   CPU. Then the row scatter (``ops/cuda/rows.py``, rows 9-10) against its
+   plain versions, bitwise on the whole tables: a [3M, 128] float32 table
+   at K=51200 with invalid slots and ids < 0 and >= V at n = 1, 2, 3; D=20
+   and D=64 float32 and D=20 bfloat16; all slots invalid; K=1; K=51203;
+   K=V=4099 at D=37; rows that no valid slot names keep their bits; the
+   multi wrapper's ValueErrors;
 4. main path: the flagship model (RankingModel(DNNScorer(1024-512-256),
    'log1p') over 136 float features, random weights and running
    statistics from a seeded ``torch.Generator``) answers
@@ -77,15 +83,36 @@ Phases (any failure exits non-zero before the last line is printed):
    lambda weight and for the NDCG weight (device time from CUDA graph
    replays, beside the plain version and the bound), and of the LambdaRank
    train step with the pairwise switch on and off;
-13. with ``--profile`` only: the kernels' registers and spills from
+13. sparse main path, recipe A: ``RankingModel(EmbeddingDNNScorer(256-128))``
+   over two [3M, 128] float32 tables (random, from the seed), B=128 lists
+   of L=50 documents of T=8 token ids (ragged lists, 1/8 of the token slots
+   padding, ids uniform over the vocabulary), fed flat; ``softmax_loss``,
+   ``LazyAdam(1e-3)`` for the tables and ``adam(1e-3)`` for
+   the tower; 8 steps of ``make_sparse_train_step`` on a repeated batch.
+   The first step's ``update_rows`` is applied to two clones of the state,
+   kernel and plain scatter, bitwise; the whole first step is held against
+   a twin's step through the plain scatter (slot ids, flags and touched
+   rows equal, the rest within ``SPARSE_TOL``); rows no step touched keep
+   their bits in the tables and moments; the loss is
+   finite and lower after 8 steps; row 10 launches exactly twice a step
+   (n=3), row 9 never, no other kernel; peak device memory;
+14. recipe B: the same with ``LazyAdagrad`` and the port's ``adagrad``
+   (held against its float64 recomputation on the card), 4 steps, row 10
+   twice a step with n=2;
+15. times: rows 9-10 at the flagship table and K=51200 (device time from
+   CUDA graph replays, beside the plain version, one ``index_copy_`` a
+   table and the bound), the sparse step with the rows switch on and off,
+   and ``compact_unique``;
+16. with ``--profile`` only: the kernels' registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
    busiest kernels of one eval step, one B=128 serve request and one train
-   step of each loss.
+   step of each loss and of the sparse step.
 
 Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -128,6 +155,17 @@ PAIR_TOL = 2e-6
 # of the float32 rate.
 SFU_OPS_PER_S = F32_OPS_PER_S / 16
 LONG_B, LONG_L = 16, 1024         # benchmarks/pairwise_sweep.py: B * L = 16384
+# The sparse step: benchmarks/sparse_op_profile.py:51-84 and PARITY.md:204,
+# EmbeddingDNNScorer(256-128) over two 3M x 128 tables at B128 x L50 x T8.
+SPARSE_B, SPARSE_L, SPARSE_T, SPARSE_MIN_LEN = 128, 50, 8, 20
+SPARSE_VOCAB, SPARSE_DIM, SPARSE_HIDDEN = 3_000_000, 128, (256, 128)
+SPARSE_STEPS = {'A': 8, 'B': 4}
+ROWS_K = 51_200                   # rows a flagship scatter writes
+# The sparse step with the kernel against the same step through the plain
+# scatter, as a share of the largest value: the two steps differ only in
+# which code copies the rows, but the slabs' backward may add a row's
+# token contributions in another order from run to run.
+SPARSE_TOL = 1e-5
 
 
 def _fail(msg):
@@ -192,16 +230,24 @@ def _profile(fn, calls=10):
     for _ in range(calls):
       fn()
     torch.cuda.synchronize()
+  # Kernels and copies only: a user annotation (the optimizer's
+  # `Optimizer.step#...` range) is placed on the device track too, over
+  # the kernels it encloses, and would count them twice.
   device = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
   if not device:
     _fail('the profiler saw no device operation')
   per_name = collections.defaultdict(float)
   for e in device:  # names cut to 90 characters: C++ signatures run long
     per_name[e.name[:90]] += e.time_range.elapsed_us() / calls / 1e3
+  # Host time by operation, the ten largest by self time a call.
+  host = sorted(((e.key, e.self_cpu_time_total / calls / 1e3)
+                 for e in prof.key_averages()), key=lambda kv: -kv[1])
   return {'device_ms': sum(per_name.values()),
           'device_ops': len(device) / calls,
-          'by_name_ms': dict(sorted(per_name.items(), key=lambda kv: -kv[1]))}
+          'by_name_ms': dict(sorted(per_name.items(), key=lambda kv: -kv[1])),
+          'host_self_ms': dict(host[:10])}
 
 
 def _host_ms(fn, iters, warmup=5):
@@ -553,6 +599,16 @@ def _all_launch_counts():
   from ranking_tpu_torch.ops.cuda import sort as cuda_sort
   return ([cuda_sort.sorted_values_and_ranks.launches] + _launch_counts()
           + [fn.launches for fn in pairwise.KERNEL_WRAPPERS])
+
+
+def _reset_all_launches():
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.ops.cuda import rows
+  from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+  for module in (fused_bn, pairwise, rows):
+    module.reset_launches()
+  cuda_sort.sorted_values_and_ranks.launches = 0
 
 
 def _hold_first_step(what, step, twin, batch, first_loss, first_grads,
@@ -1159,6 +1215,475 @@ def _time_pairwise(gen):
   return out
 
 
+# --- rows 9 and 10: the row scatter, and the sparse embedding step -----------
+
+
+def _rows_case(gen, v, d, k, n, dtype, kind='mixed'):
+  """n tables [V, D] and n slabs [K, D] on the card, ids unique among the
+  slots (K <= V), flags: 1/8 of the slots invalid, and a few valid slots
+  with ids < 0 or >= V, unless ``kind`` is 'all_valid' or 'all_invalid';
+  'int64' adds int64 ids that an int32 cast would wrap into the table."""
+  import torch
+  dev = torch.device('cuda')
+  tables = [torch.randn(v, d, device=dev, generator=gen).to(dtype)
+            for _ in range(n)]
+  updates = [torch.randn(k, d, device=dev, generator=gen).to(dtype)
+             for _ in range(n)]
+  ids = torch.randperm(v, device=dev, generator=gen)[:k].to(torch.int32)
+  valid = torch.rand(k, device=dev, generator=gen) >= 0.125
+  if kind == 'all_valid':
+    valid[:] = True
+  elif kind == 'all_invalid':
+    valid[:] = False
+  elif k >= 8:
+    ids[:4] = torch.tensor([-1, -7, v, v + 12345], dtype=torch.int32,
+                           device=dev)
+    valid[:4] = True
+  if kind == 'int64':
+    ids = ids.to(torch.int64)
+    ids[4:7] = torch.tensor([2 ** 32 + 5, 2 ** 31, -(2 ** 32) + 9],
+                            device=dev)
+    valid[4:7] = True
+  return tables, updates, ids, valid
+
+
+def _check_rows_kernels():
+  """Phase 3f: rows 9 and 10 against their plain versions, bitwise on the
+  whole tables, and every row no valid slot names keeps its bits. Returns
+  (cases run, launches of rows 9 and 10 in this phase, largest |kernel -
+  plain|)."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import rows
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  f32, bf16 = torch.float32, torch.bfloat16
+  cases = [(f'flagship [{SPARSE_VOCAB}, {SPARSE_DIM}] K={ROWS_K} n={n}',
+            SPARSE_VOCAB, SPARSE_DIM, ROWS_K, n, f32, 'mixed')
+           for n in (1, 2, 3)]
+  for n in (1, 3):
+    cases += [(f'D=20 float32 n={n}', SPARSE_VOCAB, 20, ROWS_K, n, f32,
+               'mixed'),
+              (f'D=64 float32 n={n}', SPARSE_VOCAB, 64, ROWS_K, n, f32,
+               'mixed'),
+              (f'D=20 bfloat16 n={n}', SPARSE_VOCAB, 20, ROWS_K, n, bf16,
+               'mixed')]
+  cases += [('all slots invalid n=3', 100_000, SPARSE_DIM, 4096, 3, f32,
+             'all_invalid'),
+            ('K=1 n=2', 1000, SPARSE_DIM, 1, 2, f32, 'all_valid'),
+            ('K=51203 D=128 bfloat16 n=2', 200_000, SPARSE_DIM, 51_203, 2,
+             bf16, 'mixed'),
+            ('K=V=4099 D=37 float32 n=3', 4099, 37, 4099, 3, f32, 'mixed'),
+            ('int64 ids >= 2^31 n=1', 100_000, SPARSE_DIM, 4096, 1, f32,
+             'int64'),
+            ('int64 ids >= 2^31 n=3', 100_000, 20, 4096, 3, bf16, 'int64')]
+  rows.reset_launches()
+  max_abs_err = 0.0
+  for name, v, d, k, n, dtype, kind in cases:
+    tables, updates, ids, valid = _rows_case(gen, v, d, k, n, dtype, kind)
+    before = [t.clone() for t in tables]
+    want = [t.clone() for t in tables]
+    with rows.plain_versions():
+      rows.scatter_rows_multi(want, ids, valid, updates)
+    got = rows.scatter_rows_multi(tables, ids, valid, updates)
+    torch.cuda.synchronize()
+    written = torch.zeros(v, dtype=torch.bool, device='cuda')
+    ok = valid & (ids >= 0) & (ids < v)
+    written[ids[ok].long()] = True
+    for g, w, b, t in zip(got, want, before, tables):
+      if g is not t:
+        _fail(f'rows {name}: the kernel did not write in place')
+      err = (g.float() - w.float()).abs().max().item()
+      max_abs_err = max(max_abs_err, err)
+      if not torch.equal(g, w):
+        _fail(f'rows {name}: kernel != plain version (max |diff| {err})')
+      if not torch.equal(g[~written], b[~written]):
+        _fail(f'rows {name}: a row that no valid slot names changed')
+    del tables, updates, before, want, got
+  # A table of three dims: the sparse step's router hands the kernel a
+  # [V, a*b] view of its storage, one launch for the three buffers.
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  tables, updates, ids, valid = _rows_case(gen, 100_000, 40, 4096, 3, f32)
+  tables = [t.view(100_000, 4, 10) for t in tables]
+  updates = [u.view(4096, 4, 10) for u in updates]
+  want = [t.clone() for t in tables]
+  sparse_lib._scatter_rows_multi_auto(want, ids, valid, updates, False)
+  before = rows.scatter_rows_multi.launches
+  sparse_lib._scatter_rows_multi_auto(tables, ids, valid, updates, True)
+  torch.cuda.synchronize()
+  if rows.scatter_rows_multi.launches != before + 1:
+    _fail('rows: a [V, 4, 10] table did not go through one launch of row 10')
+  if not all(torch.equal(t, w) for t, w in zip(tables, want)):
+    _fail('rows: a [V, 4, 10] table: kernel != plain version')
+  cases.append(('[100000, 4, 10] tables through the router n=3',))
+  del tables, updates, want
+  launches = [fn.launches for fn in rows.KERNEL_WRAPPERS]
+  # The multi wrapper's checks.
+  t = [torch.zeros(10, 4, device='cuda') for _ in range(2)]
+  u = [torch.zeros(3, 4, device='cuda') for _ in range(2)]
+  ids = torch.arange(3, device='cuda')
+  ok = torch.ones(3, dtype=torch.bool, device='cuda')
+  for what, args in (
+      ('equally many', (t, ids, ok, u[:1])),
+      ('share shape/dtype', ([t[0], t[1].to(bf16)], ids, ok, u)),
+      ('update slabs must share shape',
+       (t, ids, ok, [u[0], torch.zeros(4, 4, device='cuda')])),
+      ('ids/valid must be shape', (t, ids[:2], ok, u))):
+    try:
+      rows.scatter_rows_multi(*args)
+    except ValueError as e:
+      if what not in str(e):
+        _fail(f'rows: scatter_rows_multi raised {e!r}, expected {what!r}')
+    else:
+      _fail(f'rows: scatter_rows_multi took operands it must refuse ({what})')
+  torch.cuda.empty_cache()
+  _log(f'kernel vs plain: rows 9-10, {len(cases)} cases bitwise equal on '
+       f'the whole tables, untouched rows unchanged; launches {launches}; '
+       'the multi wrapper refuses 4 kinds of mismatched operands')
+  return len(cases), launches, max_abs_err
+
+
+def _sparse_batch(gen):
+  """B128 lists of L50 documents, 8 token ids each from the 3M vocabulary
+  (1/8 of the slots padding, -1), a query of 8 ids; 20 to 50 valid
+  documents a list, graded 0-4 labels, -1 on padded documents. Fed flat."""
+  import torch
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.data import dataset
+  b, l, t = SPARSE_B, SPARSE_L, SPARSE_T
+  labels, valid = _graded_labels(gen, b, l, SPARSE_MIN_LEN)
+
+  def tokens(*shape):
+    ids = torch.randint(0, SPARSE_VOCAB, shape, generator=gen,
+                        dtype=torch.int32)
+    return torch.where(torch.rand(shape, generator=gen) < 0.125, -1, ids)
+
+  return dataset.flatten_examples(batch_lib.RankingBatch(
+      context={'query_tokens': tokens(b, t)},
+      examples={'document_tokens': tokens(b, l, t)},
+      labels=labels, mask=valid))
+
+
+def _sparse_model(gen):
+  from ranking_tpu_torch.models import scorers
+  return scorers.RankingModel(scorers.EmbeddingDNNScorer(
+      SPARSE_HIDDEN, vocab_sizes={'query_tokens': SPARSE_VOCAB,
+                                  'document_tokens': SPARSE_VOCAB},
+      embedding_dim=SPARSE_DIM, dropout=0.0, use_batch_norm=False,
+      generator=gen))
+
+
+def _recording_updates(cls, record):
+  """Inside, ``cls.update_rows`` appends its ``row_grads`` and
+  ``row_params`` to ``record`` before it runs."""
+  original = cls.update_rows
+
+  def update_rows(self, row_grads, state, params, row_params=None):
+    record.append((dict(row_grads), dict(row_params)))
+    return original(self, row_grads, state, params, row_params)
+
+  return mock.patch.object(cls, 'update_rows', update_rows)
+
+
+def _touched_mask(row_grads, path):
+  import torch
+  uids, g, filled = row_grads[path]
+  touched = filled & (g.abs().sum(dim=1) > 0)
+  mask = torch.zeros(SPARSE_VOCAB, dtype=torch.bool, device=uids.device)
+  mask[uids[touched].long()] = True
+  return mask
+
+
+def _sparse_tensors(state):
+  """{name: tensor} of a sparse state's tables and moments."""
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  tables = {p: t for p, t in sparse_lib.named_paths(state.model).items()
+            if state.sparse_tx.matches(p)}
+  out = {f'{p} table': t.detach() for p, t in tables.items()}
+  for p in tables:
+    out.update({f'{p} {k}': v for k, v in state.sparse_opt_state[p].items()})
+  return out
+
+
+def _hold_isolated_update(what, sparse_tx, state, row_grads, row_params):
+  """update_rows on two clones of ``state``'s tables and moments with the
+  same slab gradients: the kernel, then the plain versions, bitwise."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import rows
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  results = []
+  for plain in (False, True):
+    tables = {p: t.detach().clone()
+              for p, t in sparse_lib.named_paths(state.model).items()
+              if sparse_tx.matches(p)}
+    opt = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+               else v.clone()) for k, v in state.sparse_opt_state.items()}
+    before = [fn.launches for fn in rows.KERNEL_WRAPPERS]
+    with rows.plain_versions() if plain else contextlib.nullcontext():
+      sparse_tx.update_rows(row_grads, opt, tables, row_params=row_params)
+    launched = [a - b for a, b in zip(
+        [fn.launches for fn in rows.KERNEL_WRAPPERS], before)]
+    if launched != ([0, 0] if plain else [0, len(tables)]):
+      _fail(f'{what}: the isolated update launched rows 9-10 {launched}')
+    results.append((tables, opt))
+  (kt, ko), (pt, po) = results
+  for p in kt:
+    if not torch.equal(kt[p], pt[p]):
+      _fail(f'{what}: isolated update of {p}: kernel != plain scatter')
+    for n in ko[p]:
+      if not torch.equal(ko[p][n], po[p][n]):
+        _fail(f'{what}: isolated update of {p} {n}: kernel != plain scatter')
+  _log(f'{what}: the first step\'s update_rows on two clones of the state, '
+       'kernel vs plain scatter: tables and moments bitwise equal')
+
+
+def _sparse_path(gen, recipe):
+  """Phases 13 (recipe 'A': LazyAdam + adam) and 14 ('B': LazyAdagrad +
+  adagrad): the sparse step at full width. Returns (launch counts of rows
+  9-10 and of every other kernel over the run, state, step fn, batch,
+  numbers)."""
+  import copy
+  import torch
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.ops.cuda import rows
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  lazy_adam = recipe == 'A'
+  num_steps = SPARSE_STEPS[recipe]
+  if lazy_adam:
+    tx_cls = sparse_lib.LazyAdam
+    make_tx = lambda: (state_lib.adam(1e-3),  # noqa: E731
+                       sparse_lib.LazyAdam(1e-3))
+  else:
+    tx_cls = sparse_lib.LazyAdagrad
+    make_tx = lambda: (state_lib.adagrad(1e-3),  # noqa: E731
+                       sparse_lib.LazyAdagrad(1e-3))
+  what = f'sparse recipe {recipe}'
+  t0 = time.perf_counter()
+  model = _sparse_model(gen)
+  twin = copy.deepcopy(model)
+  batch = _sparse_batch(gen)
+  efs = sparse_lib.derive_embed_features(
+      sparse_lib.named_paths(model), batch.context,
+      steps.restore_flat_examples(batch).examples)
+  step = steps.make_sparse_train_step(
+      loss_registry.make_loss_fn('softmax_loss'), efs, device='cuda')
+  dense_tx, sparse_tx = make_tx()
+  state = state_lib.create_train_state(model, dense_tx, device='cuda',
+                                       sparse_tx=sparse_tx)
+  dense_tx, sparse_tx = make_tx()
+  twin_state = state_lib.create_train_state(twin, dense_tx, device='cuda',
+                                            sparse_tx=sparse_tx)
+  torch.cuda.synchronize()
+  setup_s = time.perf_counter() - t0
+  paths = sorted(ef.param_path for ef in efs)
+
+  # The first step through the plain scatter, on the twin.
+  twin_record = []
+  with rows.plain_versions(), _recording_updates(tx_cls, twin_record):
+    twin_state, twin_metrics = step(twin_state, batch)
+  twin_grads = {k: p.grad for k, p in twin_state.model.named_parameters()
+                if p.grad is not None}
+  # The same slab gradients through update_rows, kernel vs plain.
+  _hold_isolated_update(what, state.sparse_tx, state, *twin_record[0])
+  dense_before = {k: p.detach().clone()
+                  for k, p in state.model.named_parameters()
+                  if not state.sparse_tx.matches(k.replace('.', '/'))}
+
+  # The main path of this slice: every count starts at 0 here.
+  record = []
+  losses = []
+  first = {}
+  _reset_all_launches()
+  peak_mib = 0.0
+  with _recording_updates(tx_cls, record):
+    for i in range(num_steps):
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      before_step = torch.cuda.memory_allocated()
+      state, metrics = step(state, batch)
+      losses.append(metrics['loss'].item())
+      peak_mib = max(peak_mib, (torch.cuda.max_memory_allocated()
+                                - before_step) / 2 ** 20)
+      if i == 0:
+        first = _hold_sparse_first_step(what, state, twin_state, metrics,
+                                        twin_metrics, record[0],
+                                        twin_record[0], twin_grads, paths)
+        if not lazy_adam:
+          first['adagrad_f64_err_ulps'] = _hold_adagrad_f64(
+              state, dense_before, 1e-3)
+  launches = [fn.launches for fn in rows.KERNEL_WRAPPERS]
+  others = _all_launch_counts()
+  torch.cuda.synchronize()
+
+  if not all(math.isfinite(v) for v in losses):
+    _fail(f'{what}: a loss is not finite: {losses}')
+  if not losses[-1] < losses[0]:
+    _fail(f'{what}: the loss did not fall in {num_steps} steps on a repeated '
+          f'batch: {losses}')
+  n_bufs = 3 if lazy_adam else 2
+  if launches != [0, 2 * num_steps]:
+    _fail(f'{what}: rows 9-10 launched {launches} in {num_steps} steps, '
+          f'expected [0, {2 * num_steps}] (one n={n_bufs} launch per table '
+          'per step)')
+  if any(others):
+    _fail(f'{what}: another kernel launched {others}')
+  if int(state.sparse_opt_state['count']) != num_steps:
+    _fail(f'{what}: count {int(state.sparse_opt_state["count"])} after '
+          f'{num_steps} steps')
+  # The lazy contract after every step: a row that no step touched keeps
+  # its bits in the table and its moments (the twin's plain step left its
+  # own untouched rows alone, and the moments started at a constant).
+  ours, theirs = _sparse_tensors(state), _sparse_tensors(twin_state)
+  start = {'m': 0.0, 'v': 0.0, 'acc': 0.1}
+  for p in paths:
+    never = torch.ones(SPARSE_VOCAB, dtype=torch.bool, device='cuda')
+    for grads, _ in record:
+      never &= ~_touched_mask(grads, p)
+    for name, t in ours.items():
+      if not name.startswith(p + ' '):
+        continue
+      kind = name.split(' ')[-1]
+      if kind == 'table':
+        if not torch.equal(t[never], theirs[name][never]):
+          _fail(f'{what}: an untouched row of {p} changed')
+      elif not bool((t[never] == start[kind]).all()):
+        _fail(f'{what}: an untouched row of {p} {kind} changed')
+    first[f'untouched_rows {p}'] = int(never.sum())
+  _log(f'{what}: {num_steps} steps at B={SPARSE_B}, L={SPARSE_L}, '
+       f'T={SPARSE_T}, two [{SPARSE_VOCAB}, {SPARSE_DIM}] tables, loss '
+       f'{losses[0]:.6f} -> {losses[-1]:.6f}; rows 9-10 launches {launches} '
+       f'({launches[1] // num_steps} per step, n={n_bufs}); '
+       f'untouched rows bit for bit; a step peaks {peak_mib:.1f} MiB of '
+       f'device memory above what it starts with; set-up {setup_s:.1f} s')
+  del twin_state, twin, ours, theirs
+  torch.cuda.empty_cache()
+  first.update(step_peak_mib=peak_mib, losses=losses, setup_s=setup_s)
+  return launches, state, step, batch, first
+
+
+def _hold_sparse_first_step(what, state, twin_state, metrics, twin_metrics,
+                            rec, twin_rec, twin_grads, paths):
+  """The kernel step's first step against the twin's plain-scatter step:
+  slot ids, slot flags and the touched-row set equal; the loss, the
+  gradients (dense and slab) and the tables and moments after the step
+  within SPARSE_TOL of the largest value; dense gradients zero in theory
+  within 1e-6."""
+  import torch
+  errs = {'loss': abs(metrics['loss'].item() - twin_metrics['loss'].item())
+          / abs(twin_metrics['loss'].item())}
+  (grads, _), (twin_grads_rows, _) = rec, twin_rec
+  worst_grad = 0.0
+  for p in paths:
+    (u, g, f), (tu, tg, tf) = grads[p], twin_grads_rows[p]
+    if not (torch.equal(u, tu) and torch.equal(f, tf)):
+      _fail(f'{what}: slot ids or flags of {p} differ from the plain step')
+    if not torch.equal(_touched_mask(grads, p), _touched_mask(twin_grads_rows,
+                                                              p)):
+      _fail(f'{what}: the touched rows of {p} differ from the plain step')
+    worst_grad = max(worst_grad, _rel_err(g, tg)[1])
+  for k, p in state.model.named_parameters():
+    if p.grad is None:
+      continue
+    g, w = p.grad, twin_grads[k]
+    if w.abs().max().item() < 1e-6:
+      if (g - w).abs().max().item() > 1e-6:
+        _fail(f'{what}: zero gradient {k} off by more than 1e-6')
+      continue
+    worst_grad = max(worst_grad, _rel_err(g, w)[1])
+  errs['gradients'] = worst_grad
+  ours, theirs = _sparse_tensors(state), _sparse_tensors(twin_state)
+  errs['tables_and_moments'] = max(_rel_err(ours[k], theirs[k])[1]
+                                   for k in ours)
+  twin_params = dict(twin_state.model.named_parameters())
+  errs['dense_parameters'] = max(
+      _rel_err(p.detach(), twin_params[k].detach())[1]
+      for k, p in state.model.named_parameters() if p.grad is not None)
+  bad = {k: v for k, v in errs.items() if not v <= SPARSE_TOL}
+  if bad:
+    _fail(f'{what}: first step vs the plain-scatter step off by {bad} '
+          f'(allowed {SPARSE_TOL})')
+  _log(f'{what}: first step vs the plain-scatter step on the card: slot ids, '
+       'flags and touched rows equal; ' + ', '.join(
+           f'{k} within {v:.3g}' for k, v in errs.items()))
+  return {f'first_step_err_{k}': v for k, v in errs.items()}
+
+
+def _hold_adagrad_f64(state, before, lr):
+  """The port's adagrad against its float64 recomputation on the card: one
+  step from a fresh accumulator of 0.1, eps 1e-7. Returns the largest error
+  in float32 ulps of the largest parameter."""
+  import torch
+  worst = 0.0
+  for k, p in state.model.named_parameters():
+    if k not in before:
+      continue
+    g = p.grad.to(torch.float64)
+    acc = 0.1 + g * g
+    want = before[k].to(torch.float64) - lr * g * torch.rsqrt(acc + 1e-7)
+    ulp = torch.finfo(torch.float32).eps * want.abs().max().item()
+    worst = max(worst, (p.detach().to(torch.float64) - want).abs().max()
+                .item() / ulp)
+  if worst > 4.0:
+    _fail(f'adagrad vs float64 on the card: off by {worst:.3g} ulps of the '
+          'largest parameter (allowed 4)')
+  _log(f'adagrad vs float64 on the card: within {worst:.3g} ulps of the '
+       'largest parameter')
+  return worst
+
+
+def _rows_bound(n, valid_rows, d, k, elem=4):
+  """(bound_ms, 'bytes'): n tables' rows read from the slabs and written to
+  the tables, plus the id stream (int32 ids, one flag byte), over HBM. A
+  copy does no arithmetic."""
+  return ((n * valid_rows * d * elem * 2 + k * 5) / HBM_BYTES_PER_S * 1e3,
+          'bytes')
+
+
+def _time_rows():
+  """Phase 15a: rows 9 and 10 at the flagship table, K=51200, every slot
+  valid: {case: {'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by'}}.
+  Device time from CUDA graph replays for the kernel and the library call
+  (one index_copy_ a table); the plain version synchronises to pick its
+  slots, so it is timed eagerly by CUDA events."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import rows
+  gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
+  tables, updates, ids, valid = _rows_case(
+      gen, SPARSE_VOCAB, SPARSE_DIM, ROWS_K, 3, torch.float32, 'all_valid')
+  ids64 = ids.long()
+  out = {}
+  for n in (1, 2, 3):
+    t, u = tables[:n], updates[:n]
+    call = lambda: rows.scatter_rows_multi(t, ids, valid, u)  # noqa: E731
+
+    def library():
+      for table, rows_in in zip(t, u):
+        table.index_copy_(0, ids64, rows_in)
+
+    ms = _graph_ms(call, calls=10, replays=10)
+    with rows.plain_versions():
+      plain_ms = _event_ms(call, 10, warmup=2)
+    library_ms = _graph_ms(library, calls=10, replays=10)
+    bound_ms, bound_by = _rows_bound(n, ROWS_K, SPARSE_DIM, ROWS_K)
+    out[f'n={n}'] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+  del tables, updates
+  torch.cuda.empty_cache()
+  return out
+
+
+def _time_compact_unique(batch):
+  """Phase 15b: device ms of the step's two compact_unique calls (the
+  document table's 51200 ids and the query table's 1024)."""
+  import torch
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  dev_batch = batch.to(torch.device('cuda'))
+  flats = [dev_batch.examples['document_tokens'].reshape(-1),
+           dev_batch.context['query_tokens'].reshape(-1)]
+  return _graph_ms(lambda: [sparse_lib.compact_unique(f) for f in flats],
+                   calls=10, replays=10)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -1170,6 +1695,7 @@ def main():
   from ranking_tpu_torch.ops.cuda import build
   from ranking_tpu_torch.ops.cuda import fused_bn
   from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.ops.cuda import rows
   from ranking_tpu_torch.ops.cuda import sort as cuda_sort
   from ranking_tpu_torch.pipeline import serving
   from ranking_tpu_torch.train import steps
@@ -1186,11 +1712,12 @@ def main():
 
   # Phase 2: build, one nvcc per source, side by side.
   t0 = time.perf_counter()
-  sources = ['sort', 'fused_bn_fwd', 'fused_bn_bwd', 'pairwise']
+  sources = ['sort', 'fused_bn_fwd', 'fused_bn_bwd', 'pairwise', 'rows']
   build.compile_libraries(sources)
   cuda_sort._kernel()
   fused_bn.build_kernels()
   pairwise.build_kernels()
+  rows.build_kernels()
   build_s = time.perf_counter() - t0
   _log(f'build: {len(sources)} kernel sources in {build_s:.2f} s ('
        + ', '.join(f'{k} {v:.1f} s' for k, v in build.BUILD_SECONDS.items())
@@ -1230,6 +1757,9 @@ def main():
   # Phase 3d, 3e: the fused pairwise sums and the whole pairwise loss.
   pair_errs = _check_pairwise_kernels(gen)
   _check_pairwise_op(gen)
+
+  # Phase 3f: the row scatter, bitwise.
+  rows_cases, rows_phase_launches, rows_err = _check_rows_kernels()
 
   # Phase 4: the main path. Counts start at 0 here.
   model = _flagship_model(gen)
@@ -1345,10 +1875,23 @@ def main():
   pair_times = _time_pairwise(gen)
   rank_times, rank_fn = _time_train_step(rank_state, rank_step, rank_batch,
                                          pairwise, prefix='lambdarank')
+  # Phases 13-15: the sparse step, recipes A and B, and their times.
+  sparse_counts, sparse_state, sparse_step, sparse_batch, sparse_a = (
+      _sparse_path(gen, 'A'))
+  adagrad_counts, adagrad_state, _, _, sparse_b = _sparse_path(gen, 'B')
+  del adagrad_state
+  torch.cuda.empty_cache()
+  rows_times = _time_rows()
+  sparse_times, sparse_fn = _time_train_step(
+      sparse_state, sparse_step, sparse_batch, rows, prefix='sparse')
+  compact_unique_ms = _time_compact_unique(sparse_batch)
   timings = {
       'build_s': build_s,
       'fused': fused_times, **train_times,
       'pairwise': pair_times, **rank_times, **long_list_memory,
+      'rows': rows_times, **sparse_times,
+      'compact_unique_ms': compact_unique_ms,
+      'sparse_recipe_a': sparse_a, 'sparse_recipe_b': sparse_b,
       'sort_kernel_ms': kernel_ms, 'sort_plain_ms': plain_ms,
       'sort_library_ms': library_ms, 'sort_bound_ms': bound_ms,
       'sort_eager_ms': sort_eager_ms,
@@ -1360,7 +1903,7 @@ def main():
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
-    # Phase 13 (optional): the kernels' resources and where the device
+    # Phase 16 (optional): the kernels' resources and where the device
     # time of an eval step, a serve request and the train steps goes.
     for source in sources:
       log = build.compile_library(source, ('-Xptxas', '-v')) + '.log'
@@ -1375,14 +1918,17 @@ def main():
          serve_ms),
         ('train_step', train_fn, train_times['train_step_fused_host_ms']),
         ('lambdarank_train_step', rank_fn,
-         rank_times['lambdarank_step_fused_host_ms'])):
+         rank_times['lambdarank_step_fused_host_ms']),
+        ('sparse_train_step', sparse_fn,
+         sparse_times['sparse_step_fused_host_ms'])):
       prof = _profile(fn)
       prof['host_ms'] = host_ms
       prof['device_idle_share'] = 1.0 - prof['device_ms'] / host_ms
       # The 12 busiest kernels, and the port's own whatever their share.
       prof['by_name_ms'] = {
           k: v for i, (k, v) in enumerate(prof['by_name_ms'].items())
-          if i < 12 or 'pairwise_' in k or 'rank_sort' in k}
+          if i < 12 or 'pairwise_' in k or 'rank_sort' in k
+          or 'scatter_rows' in k}
       _log(json.dumps({'profile': name, **prof}))
 
   kernels = [{
@@ -1438,6 +1984,31 @@ def main():
         'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
         'bound_by': t['bound_by'], 'library_ms': None,
         'ms_by_case': {k: v['ms'] for k, v in pair_times[name].items()}})
+  # Rows 9-10 at the flagship table, K=51200 rows, every slot valid. Row 9
+  # (n=1) has no launch on the main path: LazyAdam and LazyAdagrad write
+  # their n=3 and n=2 buffers through row 10; it is held and timed in its
+  # own phase. Row 10's numbers are the main path's n=3; `ms_by_case` has
+  # n=2, recipe B's.
+  for name, line, case, main_launches, extra in (
+      ('scatter_rows', 131, 'n=1', sparse_counts[0],
+       {'launches_own_phase': rows_phase_launches[0]}),
+      ('scatter_rows_multi', 245, 'n=3', sparse_counts[1],
+       {'launches_recipe_b': adagrad_counts[1],
+        'launches_own_phase': rows_phase_launches[1],
+        'ms_by_case': {k: rows_times[k]['ms'] for k in ('n=2', 'n=3')},
+        'plain_ms_by_case': {k: rows_times[k]['plain_ms']
+                             for k in ('n=2', 'n=3')},
+        'library_ms_by_case': {k: rows_times[k]['library_ms']
+                               for k in ('n=2', 'n=3')}})):
+    t = rows_times[case]
+    kernels.append({
+        'name': name, 'route': 'cuda',
+        'source': 'ranking_tpu_torch/ops/cuda/csrc/rows.cu',
+        'replaces': f'ranking_tpu/ops/pallas/rows.py:{line}',
+        'launches': main_launches, **extra,
+        'max_abs_err': rows_err, 'check': 'bitwise', 'cases': rows_cases,
+        'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': t['bound_by'], 'library_ms': t['library_ms']})
   print(card)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

@@ -2,7 +2,7 @@
 
 The port grows slice by slice beside the JAX package, which stays the
 reference it is tested against. It imports ``torch`` and never JAX or
-anything of ``ranking_tpu``. It holds two paths so far:
+anything of ``ranking_tpu``. It holds these paths so far:
 
 * serving and eval: ``pipeline.serving.Predictor.score_batch`` and
   ``evaluate_dataset`` over a ``DNNScorer`` ranking model, with NDCG and
@@ -11,7 +11,12 @@ anything of ``ranking_tpu``. It holds two paths so far:
 * training: ``train.steps.make_train_step`` over the same model with
   ``SoftmaxLoss`` and Adam, whose Dense -> masked BatchNorm -> ReLU tower
   runs as CUDA C++ kernels forward and backward
-  (``ops/cuda/csrc/fused_bn_*.cu``).
+  (``ops/cuda/csrc/fused_bn_*.cu``); the pairwise losses' sums over all
+  pairs of a list are CUDA C++ kernels too (``ops/cuda/csrc/pairwise.cu``);
+* sparse embedding training: ``train.steps.make_sparse_train_step`` over an
+  ``EmbeddingDNNScorer`` with ``LazyAdam`` or ``LazyAdagrad``, whose row
+  writes into the tables and their moments are a CUDA C++ kernel
+  (``ops/cuda/csrc/rows.cu``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device='cpu'``; without CUDA they raise rather than carry on on the CPU.

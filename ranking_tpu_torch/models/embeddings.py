@@ -1,0 +1,108 @@
+"""Embedding encoders for sparse token-id features.
+
+The port's copy of ``ranking_tpu/models/embeddings.py``: token-id features
+``[B, T]`` (context) or ``[B, L, T]`` (examples) are looked up in a table
+and pooled over the token axis; ids below 0 are padding, masked out of the
+pooling.
+
+The sparse train step (``train/steps.py`` ``make_sparse_train_step``) reads
+each encoder's rows from a gathered slab ``[K, dim]`` with batch-local slot
+ids instead of from its table. The JAX package redirects the lookup with
+flax's ``intercept_methods``; here ``read_from_slabs`` sets the slab on the
+encoder for the length of the step's forward. Outside it (eval, serving)
+an encoder reads its whole table.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+
+def pooled_lookup(table: Tensor, ids: Tensor, combiner: str = 'mean') -> Tensor:
+  """Masked pooled embedding lookup.
+
+  Args:
+    table: ``[vocab, dim]`` embedding table.
+    ids: integer ids, any shape ``[..., T]``; ids < 0 are padding. Ids
+      >= vocab clip to the last row and still count toward the combiner.
+    combiner: 'mean' | 'sum' | 'sqrtn'.
+
+  Returns:
+    ``[..., dim]`` pooled embeddings.
+  """
+  if combiner not in ('mean', 'sum', 'sqrtn'):
+    raise ValueError(f'Unknown combiner {combiner!r}')
+  valid = ids >= 0
+  safe_ids = torch.clamp(torch.where(valid, ids, 0), max=table.shape[0] - 1)
+  embeds = F.embedding(safe_ids, table)
+  embeds = torch.where(valid[..., None], embeds, 0.0)
+  summed = torch.sum(embeds, dim=-2)
+  counts = torch.sum(valid.to(embeds.dtype), dim=-1, keepdim=True)
+  if combiner == 'sum':
+    return summed
+  if combiner == 'mean':
+    return summed / torch.clamp(counts, min=1.0)
+  return summed / torch.sqrt(torch.clamp(counts, min=1.0))
+
+
+class EmbeddingEncoder(nn.Module):
+  """Learned embedding table ``embedding [vocab, dim]`` with masked pooling
+  over a token axis. The table starts normal(0, 1e-2), drawn from
+  ``generator``."""
+
+  def __init__(self, vocab_size: int, embedding_dim: int,
+               combiner: str = 'mean',
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    self.combiner = combiner
+    self.embedding = nn.Parameter(torch.empty(vocab_size, embedding_dim))
+    # The sparse step's row slab for this encoder (read_from_slabs).
+    self.slab: Optional[Tensor] = None
+    with torch.no_grad():
+      nn.init.normal_(self.embedding, std=1e-2,
+                      generator=torch.Generator() if generator is None
+                      else generator)
+
+  def _ids(self, ids: Tensor) -> Tensor:
+    return ids
+
+  def forward(self, ids: Tensor) -> Tensor:
+    if self.slab is not None:
+      # Slot ids, already reduced by the step; padding stays negative.
+      return pooled_lookup(self.slab, ids, self.combiner)
+    return pooled_lookup(self.embedding, self._ids(ids), self.combiner)
+
+
+class HashEmbeddingEncoder(EmbeddingEncoder):
+  """Embedding over hashed ids (vocabulary-free): ids are reduced modulo
+  ``num_buckets`` before the lookup, as
+  ``categorical_column_with_hash_bucket`` + embedding."""
+
+  def __init__(self, num_buckets: int, embedding_dim: int,
+               combiner: str = 'mean',
+               generator: Optional[torch.Generator] = None):
+    super().__init__(num_buckets, embedding_dim, combiner, generator)
+    self.num_buckets = num_buckets
+
+  def _ids(self, ids: Tensor) -> Tensor:
+    return torch.where(ids >= 0, torch.remainder(ids, self.num_buckets), -1)
+
+
+@contextlib.contextmanager
+def read_from_slabs(slabs: Mapping[EmbeddingEncoder, Tensor]) -> Iterator[None]:
+  """Inside, each encoder of ``slabs`` reads its rows from its slab, with
+  the slot ids it is given, instead of from its table."""
+  try:
+    for encoder, slab in slabs.items():
+      encoder.slab = slab
+    yield
+  finally:
+    for encoder in slabs:
+      encoder.slab = None

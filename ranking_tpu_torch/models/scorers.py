@@ -1,18 +1,19 @@
 """The DNN scorer and the top-level ranking model.
 
-The port's copy of ``DNNScorer`` and ``RankingModel`` from
-``ranking_tpu/models/scorers.py`` (the reference's
+The port's copy of ``DNNScorer``, ``EmbeddingDNNScorer`` and
+``RankingModel`` from ``ranking_tpu/models/scorers.py`` (the reference's
 tensorflow_ranking/python/keras/model.py), as ``nn.Module``s mapping
 ``(context, examples, mask) -> logits [B, L]``, in eval and train mode.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ranking_tpu_torch.models import embeddings as emb_lib
 from ranking_tpu_torch.models import layers as layers_lib
 from ranking_tpu_torch.utils import fns
 
@@ -82,6 +83,65 @@ class DNNScorer(nn.Module):
       return layers_lib.restore_list(scores, mask)
     logits = scores.reshape(batch, list_size, self.output_units)
     return torch.where(mask[:, :, None], logits, layers_lib.PADDING_LOGIT)
+
+
+class EmbeddingDNNScorer(nn.Module):
+  """DNN scorer over mixed dense and sparse token features
+  (examples/tf_ranking_tfrecord.py:99-115, ``embedding_column``).
+
+  Features named in ``vocab_sizes`` are integer token ids ``[..., T]``
+  (padding < 0), embedded with a learned table and pooled; everything else
+  passes through as dense. One encoder per vocabulary name, shared by
+  context and examples, as the submodule ``embed_<name>``; the tower is the
+  ``DNNScorer`` ``dnn``. The tower's input width is ``embedding_dim`` for
+  each vocabulary name plus ``dense_width``, the width of the dense
+  features. The row-sharded tables of the JAX package's ``mesh`` option are
+  not ported yet.
+  """
+
+  def __init__(
+      self,
+      hidden_layer_dims: Sequence[int],
+      vocab_sizes: Mapping[str, int],
+      embedding_dim: int = 20,
+      dense_width: int = 0,
+      output_units: int = 1,
+      combiner: str = 'mean',
+      activation: str = 'relu',
+      use_batch_norm: bool = True,
+      batch_norm_momentum: float = 0.999,
+      dropout: float = 0.5,
+      generator: Optional[torch.Generator] = None,
+      dtype: torch.dtype = torch.float32,
+      mesh=None,
+  ):
+    super().__init__()
+    if mesh is not None:
+      raise NotImplementedError('EmbeddingDNNScorer(mesh=...): row-sharded '
+                                'tables are not ported yet')
+    generator = torch.Generator() if generator is None else generator
+    self.vocab_names = sorted(vocab_sizes)
+    for name in self.vocab_names:
+      self.add_module(f'embed_{name}', emb_lib.EmbeddingEncoder(
+          vocab_sizes[name], embedding_dim, combiner=combiner,
+          generator=generator))
+    self.dnn = DNNScorer(
+        hidden_layer_dims,
+        in_features=embedding_dim * len(self.vocab_names) + dense_width,
+        output_units=output_units, activation=activation,
+        use_batch_norm=use_batch_norm,
+        batch_norm_momentum=batch_norm_momentum, dropout=dropout,
+        generator=generator, dtype=dtype)
+
+  def forward(self, context: FeatureDict, examples: FeatureDict,
+              mask: Tensor, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> Tensor:
+    def embed(features):
+      return {k: (self.get_submodule(f'embed_{k}')(v)
+                  if k in self.vocab_names else v)
+              for k, v in features.items()}
+    return self.dnn(embed(context), embed(examples), mask, training=training,
+                    generator=generator)
 
 
 class RankingModel(nn.Module):

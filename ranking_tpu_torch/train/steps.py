@@ -7,9 +7,12 @@ The port's copy of ``ranking_tpu/train/steps.py``:
   update, in place on ``state.model`` and ``state.optimizer``; the
   generator feeds dropout and the loss's tie shuffles;
 * ``eval_step(model, batch, metric_states) -> (metric_states, logits)``:
-  forward in eval mode, every metric streamed into a ``MeanState``.
+  forward in eval mode, every metric streamed into a ``MeanState``;
+* the sparse train step (``make_sparse_train_step``), whose embedding
+  gradients exist only for the rows a batch touched.
 
-Both keep their results on the device and never synchronize with the host.
+All of them keep their results on the device and never synchronize with the
+host.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from ranking_tpu_torch.data.batch import RankingBatch
+from ranking_tpu_torch.models import embeddings as emb_lib
 from ranking_tpu_torch.ops.metric_registry import MeanState
+from ranking_tpu_torch.train import sparse as sparse_lib
 from ranking_tpu_torch.train.state import TrainState
 from ranking_tpu_torch.utils import list_ops
 from ranking_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -119,6 +124,10 @@ def make_train_step(
 
   def train_step(state: TrainState, batch: RankingBatch,
                  generator: Optional[torch.Generator] = None):
+    if state.sparse_tx is not None:
+      raise NotImplementedError(
+          'make_train_step on a state with sparse_tx (the dense-gradient '
+          'lazy update) is not ported yet; use make_sparse_train_step')
     batch = restore_flat_examples(batch.to(device))
     state.optimizer.zero_grad(set_to_none=True)
     extra = {} if generator is None else {'generator': generator}
@@ -127,6 +136,138 @@ def make_train_step(
     loss = _total_loss(batch.labels, logits, batch.features, generator)
     loss.backward()
     state.optimizer.step()
+    state.step += 1
+    return state, _sanity_metrics(loss, batch, logits)
+
+  return train_step
+
+
+def _group_by_table(embed_features, tables: Mapping[str, Tensor]):
+  """``{param_path: [EmbedFeature]}``, after the checks of the JAX step:
+  every table covered, no unknown path, no feature feeding two tables."""
+  declared = {ef.param_path for ef in embed_features}
+  uncovered = set(tables) - declared
+  if uncovered:
+    raise ValueError(
+        f'sparse tables with no declared id feature: {sorted(uncovered)}; '
+        'declare them in embed_features or narrow table_pattern')
+  unknown = declared - set(tables)
+  if unknown:
+    raise ValueError(
+        f'embed_features declare param_paths that match no sparse table: '
+        f'{sorted(unknown)}; sparse tables are {sorted(tables)}')
+  # Features sharing one table share one dedup and one slab.
+  by_path: Dict[str, list] = {}
+  for ef in embed_features:
+    by_path.setdefault(ef.param_path, []).append(ef)
+  # The step rewrites a feature to slot ids of ITS table, so a second table
+  # reading the same feature would train wrong rows with no error.
+  seen: Dict[Tuple[str, str], str] = {}
+  for path, group in by_path.items():
+    for ef in group:
+      k = (ef.source, ef.feature)
+      if k in seen and seen[k] != path:
+        raise ValueError(
+            f'feature {ef.feature!r} ({ef.source}) feeds two sparse '
+            f'tables ({seen[k]!r} and {path!r}); the sparse step '
+            'rewrites features to per-table slot ids, so each feature '
+            'can feed one table: duplicate the feature under another '
+            'name')
+      seen[k] = path
+  return by_path
+
+
+def make_sparse_train_step(
+    loss_fn: Any,
+    embed_features: Any,
+    multi_task_weights: Optional[Mapping[str, float]] = None,
+    device: DeviceLike = 'cuda',
+) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+  """Train step whose embedding gradients never exist densely.
+
+  The port of the JAX package's ``make_sparse_train_step``, the equivalent
+  of TF's ``IndexedSlices`` path (python/feature.py:79-133), with cost
+  bounded by the batch:
+
+  1. each table's declared id features are reduced modulo its row count
+     (or ``num_buckets``) where they are ids (>= 0), deduplicated together
+     with ``sparse.compact_unique`` and rewritten to batch-local slots;
+  2. the touched rows are gathered into a ``[K, dim]`` slab per table, a
+     copy (``index_select``: the update reuses it as the rows' old values
+     while it writes the table), and each encoder reads its slab inside the
+     forward (``embeddings.read_from_slabs``);
+  3. the backward gives the dense parameters' gradients and the slabs';
+     the dense optimizer steps the first, ``state.sparse_tx.update_rows``
+     the touched rows of each table and its moments, in place.
+
+  ``embed_features``: ``sparse.EmbedFeature``s; every table that the state's
+  ``sparse_tx`` matches must be covered. The batch moves to ``device``; the
+  state (``create_train_state(..., sparse_tx=...)``) must already be there.
+  ``generator`` as in ``make_train_step``. Metrics are computed on the batch
+  as given, not the remapped one.
+  """
+  device = resolve_device(device)
+  embed_features = tuple(embed_features)
+  _total_loss = _make_total_loss(loss_fn, multi_task_weights)
+
+  def train_step(state: TrainState, batch: RankingBatch,
+                 generator: Optional[torch.Generator] = None):
+    if state.sparse_tx is None:
+      raise ValueError('make_sparse_train_step requires a TrainState built '
+                       'with sparse_tx (train.sparse.LazyAdam or '
+                       'LazyAdagrad)')
+    batch = restore_flat_examples(batch.to(device))
+    _, tables = sparse_lib.partition(sparse_lib.named_paths(state.model),
+                                     state.sparse_tx)
+    by_path = _group_by_table(embed_features, tables)
+    context = dict(batch.context)
+    examples = dict(batch.examples)
+    slabs: Dict[str, Tensor] = {}
+    info: Dict[str, Tuple[Tensor, Tensor]] = {}
+    for path, group in by_path.items():
+      table = tables[path]
+      ids_list = []
+      for ef in group:
+        # Raw ids from the batch as given: `context` and `examples` are
+        # rewritten to slot ids as the loop goes.
+        src = batch.context if ef.source == 'context' else batch.examples
+        ids = src[ef.feature]
+        modulus = ef.num_buckets or table.shape[0]
+        ids_list.append(torch.where(ids >= 0, torch.remainder(ids, modulus),
+                                    ids))
+      flat = torch.cat([i.reshape(-1) for i in ids_list])
+      uids, remap, filled = sparse_lib.compact_unique(flat)
+      offset = 0
+      for ef, ids in zip(group, ids_list):
+        dst = context if ef.source == 'context' else examples
+        dst[ef.feature] = remap[offset:offset + ids.numel()].reshape(
+            ids.shape)
+        offset += ids.numel()
+      slabs[path] = table.detach().index_select(0, uids).requires_grad_()
+      info[path] = (uids, filled)
+    batch2 = batch.replace(context=context, examples=examples)
+    encoders = {}
+    for path, slab in slabs.items():
+      encoder = state.model.get_submodule('.'.join(path.split('/')[:-1]))
+      if not isinstance(encoder, emb_lib.EmbeddingEncoder):
+        raise NotImplementedError(
+            f'sparse table {path!r} belongs to a {type(encoder).__name__}; '
+            'the sparse step redirects EmbeddingEncoder lookups only (other '
+            'tables are not ported yet)')
+      encoders[encoder] = slab
+
+    state.optimizer.zero_grad(set_to_none=True)
+    extra = {} if generator is None else {'generator': generator}
+    with emb_lib.read_from_slabs(encoders):
+      logits = state.model(batch2.context, batch2.examples, batch2.mask,
+                           training=True, **extra)
+    loss = _total_loss(batch2.labels, logits, batch2.features, generator)
+    loss.backward()
+    state.optimizer.step()
+    row_grads = {p: (info[p][0], slabs[p].grad, info[p][1]) for p in slabs}
+    state.sparse_tx.update_rows(
+        row_grads, state.sparse_opt_state, tables,
+        row_params={p: s.detach() for p, s in slabs.items()})
     state.step += 1
     return state, _sanity_metrics(loss, batch, logits)
 

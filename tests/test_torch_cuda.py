@@ -13,7 +13,9 @@ from ranking_tpu_torch.ops import lambda_weights as lw
 from ranking_tpu_torch.ops import losses
 from ranking_tpu_torch.ops.cuda import fused_bn
 from ranking_tpu_torch.ops.cuda import pairwise
+from ranking_tpu_torch.ops.cuda import rows
 from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+from ranking_tpu_torch.train import sparse
 from ranking_tpu_torch.utils import list_ops
 
 pytestmark = pytest.mark.cuda
@@ -261,3 +263,115 @@ def test_pairwise_wrappers_refuse_what_the_kernels_cannot_take(dev):
   finally:
     pairwise.set_enabled(None)
   assert value.item() == 0.0
+
+
+# --- the row scatter (rows 9-10 of the kernel table) -------------------------
+
+
+def _rows_case(dev, v, d, k, n, dtype, seed):
+  """n tables [V, D] and slabs [K, D]; unique ids among valid slots, with
+  invalid slots, a negative id and ids >= V among them."""
+  gen = torch.Generator().manual_seed(seed)
+  tables = [torch.randn(v, d, generator=gen).to(dev, dtype) for _ in range(n)]
+  updates = [torch.randn(k, d, generator=gen).to(dev, dtype)
+             for _ in range(n)]
+  ids = torch.randperm(v, generator=gen)[:k].to(torch.int32)
+  valid = torch.rand(k, generator=gen) > 0.2
+  if k >= 3:
+    ids[0], ids[1] = -1, v + 7
+  return tables, updates, ids.to(dev), valid.to(dev)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n', [1, 2, 3])
+@pytest.mark.parametrize('v,d,k', [(5000, 128, 4099), (700, 20, 333),
+                                   (700, 64, 1), (300, 8, 300)])
+def test_rows_kernel_equals_plain_version(dev, v, d, k, n, dtype):
+  tables, updates, ids, valid = _rows_case(dev, v, d, k, n, dtype, seed=k + n)
+  want = [t.clone() for t in tables]
+  with rows.plain_versions():
+    rows.scatter_rows_multi(want, ids, valid, updates)
+  rows.reset_launches()
+  got = rows.scatter_rows_multi(tables, ids, valid, updates)
+  torch.cuda.synchronize()
+  assert [fn.launches for fn in rows.KERNEL_WRAPPERS] == (
+      [1, 0] if n == 1 else [0, 1])
+  for g, w, t in zip(got, want, tables):
+    assert g is t and torch.equal(g, w)
+
+
+def test_rows_kernel_skips_every_invalid_slot(dev):
+  tables, updates, ids, valid = _rows_case(dev, 1000, 128, 500, 2,
+                                           torch.float32, seed=1)
+  before = [t.clone() for t in tables]
+  rows.scatter_rows_multi(tables, ids, torch.zeros_like(valid), updates)
+  torch.cuda.synchronize()
+  assert all(torch.equal(t, b) for t, b in zip(tables, before))
+
+
+def test_rows_wrappers_refuse_what_the_kernel_cannot_take(dev):
+  t = torch.zeros(10, 4, device=dev)
+  ids = torch.arange(3, device=dev)
+  ok = torch.ones(3, dtype=torch.bool, device=dev)
+  with pytest.raises(ValueError, match='updates must be'):
+    rows.scatter_rows(t, ids, ok, torch.zeros(3, 4, device=dev,
+                                              dtype=torch.bfloat16))
+  with pytest.raises(ValueError, match='contiguous'):
+    rows.scatter_rows(torch.zeros(4, 10, device=dev).t(), ids, ok,
+                      torch.zeros(3, 4, device=dev))
+  with pytest.raises(ValueError, match='2- and 4-byte'):
+    rows.scatter_rows(t.double(), ids, ok, torch.zeros(3, 4, device=dev,
+                                                        dtype=torch.float64))
+  with pytest.raises(ValueError, match='at most 3'):
+    rows.scatter_rows_multi([t] * 4, ids, ok, [torch.zeros(3, 4, device=dev)] * 4)
+
+
+@pytest.mark.parametrize('n', [1, 3])
+def test_rows_kernel_drops_int64_ids_beyond_int32(dev, n):
+  """int64 ids reach the kernel as they are: 2^32 + 5 must not wrap into
+  row 5."""
+  tables, updates, ids, valid = _rows_case(dev, 1000, 128, 6, n,
+                                           torch.float32, seed=2)
+  ids = ids.to(torch.int64)
+  ids[2:5] = torch.tensor([2 ** 32 + 5, 2 ** 31, -(2 ** 32) + 9])
+  valid[:] = True
+  want = [t.clone() for t in tables]
+  with rows.plain_versions():
+    rows.scatter_rows_multi(want, ids, valid, updates)
+  rows.reset_launches()
+  rows.scatter_rows_multi(tables, ids, valid, updates)
+  torch.cuda.synchronize()
+  assert sum(fn.launches for fn in rows.KERNEL_WRAPPERS) == 1
+  assert all(torch.equal(g, w) for g, w in zip(tables, want))
+
+
+@pytest.mark.parametrize('kind', ['adam', 'adagrad'])
+def test_update_rows_of_a_3d_table_launch_the_kernel(dev, kind):
+  """A [V, a, b] table goes through the kernel as a [V, a*b] view, one
+  launch, bitwise equal to the plain scatter."""
+  gen = torch.Generator().manual_seed(3)
+  spec = sparse.LazyAdam(1e-2) if kind == 'adam' else sparse.LazyAdagrad(1e-2)
+  table = torch.randn(500, 4, 5, generator=gen).to(dev)
+  uids = torch.randperm(500, generator=gen)[:64].to(dev, torch.int32)
+  g = torch.randn(64, 4, 5, generator=gen).to(dev)
+  g[7] = 0.0
+  filled = (torch.arange(64) < 50).to(dev)
+  results = []
+  for plain in (False, True):
+    tables = {'t': table.clone()}
+    state = spec.init(tables)
+    rows.reset_launches()
+    if plain:
+      with rows.plain_versions():
+        spec.update_rows({'t': (uids, g, filled)}, state, tables)
+    else:
+      spec.update_rows({'t': (uids, g, filled)}, state, tables)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in rows.KERNEL_WRAPPERS] == (
+        [0, 0] if plain else [0, 1])
+    results.append((tables, state))
+  (kt, ks), (pt, ps) = results
+  assert kt['t'].shape == (500, 4, 5) and torch.equal(kt['t'], pt['t'])
+  assert not torch.equal(kt['t'], table)
+  for name in ks['t']:
+    assert torch.equal(ks['t'][name], ps['t'][name])

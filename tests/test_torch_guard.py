@@ -9,6 +9,7 @@ import torch
 
 from ranking_tpu_torch.models import scorers
 from ranking_tpu_torch.pipeline import serving
+from ranking_tpu_torch.train import sparse
 from ranking_tpu_torch.train import state as state_lib
 from ranking_tpu_torch.train import steps
 
@@ -49,6 +50,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     state_lib.create_train_state(model)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     steps.init_metric_states({})
+  embedding_model = scorers.RankingModel(
+      scorers.EmbeddingDNNScorer((4,), {'q': 10}, embedding_dim=2))
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    steps.make_sparse_train_step(lambda *a, **k: None, ())
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    state_lib.create_train_state(embedding_model,
+                                 sparse_tx=sparse.LazyAdam())
   serving.Predictor(model, device='cpu')  # the CPU when asked
   state_lib.create_train_state(model, device='cpu')
   steps.make_train_step(lambda *a, **k: None, device='cpu')
+  steps.make_sparse_train_step(lambda *a, **k: None, (), device='cpu')
+  state = state_lib.create_train_state(embedding_model, device='cpu',
+                                       sparse_tx=sparse.LazyAdam())
+  assert state.sparse_opt_state['scorer/embed_q/embedding']['m'].device == (
+      torch.device('cpu'))
