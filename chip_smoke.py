@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the last line is printed):
 2. build: compiles the five kernel sources of
    ``ranking_tpu_torch/ops/cuda/csrc`` side by side (the sort, the fused
    masked-BN tower's forward and its backward, the fused pairwise sums, the
-   row scatter);
+   row scatter); prints the HGMMA (``wgmma``) instructions of the two fused
+   tower libraries, which must not be 0, and their registers and spills;
 3. kernel vs plain: the CUDA sort against ``sorted_values_and_ranks_reference``
    on the card, required bitwise equal (ranks and sorted values), at the
    flagship shape (B=128, L=200, K=2, topn 1/5/10/200), with score ties,
@@ -18,9 +19,11 @@ Phases (any failure exits non-zero before the last line is printed):
    domain, and B=1. Then the five fused masked-BN functions
    (``ops/cuda/fused_bn.py``) against their plain versions at the flagship
    widths 136-1024-512-256, in float32 and bfloat16, at N=25600 and N=700
-   with a ragged mask and at N=700 with an all-ones and an all-zero mask
-   (tolerances at ``FUSED_TOL``: these are sums over up to 25600 rows in
-   another order, so bitwise equality is not expected), and the whole
+   with a ragged mask, at N=700 with an all-ones and an all-zero mask, and
+   at the tile edges of ``FUSED_EDGE_CASES`` (tolerances at ``FUSED_TOL``:
+   these are sums over up to 25600 rows in another order, so bitwise
+   equality is not expected; two calls on the same inputs must be bitwise
+   equal), and the whole
    ``fused_bn_mlp`` (outputs, means, vars, all gradients) against autograd
    through ``reference_bn_mlp`` on the card and in float64 on the CPU.
    Then the fused pairwise sums (``ops/cuda/pairwise.py``), forward and
@@ -65,8 +68,10 @@ Phases (any failure exits non-zero before the last line is printed):
    against the plain versions, one launch each of the two first-layer
    functions;
 9. times of the fused functions (device time from CUDA graph replays, each
-   beside its plain version and its bound) and of a train step (host clock
-   and CUDA events), beside the same step with the fused switch off;
+   beside its plain version, its bound on the tensor cores and on the
+   float32 pipes, and its bare products through ``torch.mm``) and of a
+   train step (host clock and CUDA events), beside the same step with the
+   fused switch off;
 10. LambdaRank training main path: the same model and step with
    ``pairwise_logistic_loss`` and the NDCG lambda weight, 8 steps with no
    generator. The first step is held against the plain versions as in
@@ -101,9 +106,10 @@ Phases (any failure exits non-zero before the last line is printed):
    twice a step with n=2;
 15. times: rows 9-10 at the flagship table and K=51200 (device time from
    CUDA graph replays, beside the plain version, one ``index_copy_`` a
-   table and the bound), the sparse step with the rows switch on and off,
-   and ``compact_unique``;
-16. with ``--profile`` only: the kernels' registers and spills from
+   table and the bound; row 9 and ``index_copy_`` also in 5 alternating
+   repetitions, with the median ratio), the sparse step with the rows
+   switch on and off, and ``compact_unique``;
+16. with ``--profile`` only: every kernel's registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
    busiest kernels of one eval step, one B=128 serve request and one train
    step of each loss and of the sparse step.
@@ -128,6 +134,11 @@ EVAL_BATCHES = 4
 # HBM rate of an H100 SXM (NVIDIA data sheet), for the kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12             # float32 outside the tensor cores
+# TF32 on the tensor cores (NVIDIA data sheet, dense). A float32-accurate
+# product takes three TF32 passes (split TF32), so the least time of the
+# fused tower's products is their operations over a third of that rate.
+TF32_OPS_PER_S = 495e12
+SPLIT_TF32_OPS_PER_S = TF32_OPS_PER_S / 3
 N_ROWS = B * L                    # 25600 documents in a flagship batch
 TRAIN_STEPS = 8
 # Largest |kernel - plain| allowed, as a share of the largest |plain| value
@@ -181,6 +192,32 @@ def _card_line():
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, timeout=60, check=True).stdout
   return out.strip().splitlines()[0]
+
+
+def _sass_count(path, opcode):
+  """How many instructions of `opcode` the machine code of a built library
+  holds (``cuobjdump -sass``, beside the ``nvcc`` that built it)."""
+  import os
+  from ranking_tpu_torch.ops.cuda import build
+  tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
+  sass = subprocess.run([tool, '-sass', path], capture_output=True,
+                        text=True, timeout=300, check=True).stdout
+  return sum(line.split()[1].startswith(opcode) for line in sass.splitlines()
+             if '*/' in line and len(line.split()) > 1
+             and line.split()[0].startswith('/*'))
+
+
+def _ptxas_summary(path):
+  """Registers and spills of each kernel of a built library, from the
+  ``ptxas -v`` lines that the build keeps beside it."""
+  with open(path + '.log') as f:
+    lines = [line.strip() for line in f]
+  regs = [line.split('Used ')[1].split(' registers')[0] for line in lines
+          if 'Used' in line and 'registers' in line]
+  spills = [line for line in lines if 'spill' in line
+            and not line.startswith('0 bytes stack frame, 0 bytes spill')]
+  return (f'{len(regs)} kernels, registers {"/".join(regs)}; '
+          + ('; '.join(spills) if spills else 'no spills'))
 
 
 def _event_ms(fn, iters, warmup=10):
@@ -389,12 +426,15 @@ def _fused_case(gen, n, mask_kind, act, dims=(F,) + HIDDEN):
   return dict(x=x, mask=mask, layers=layers, act=act)
 
 
-def _fused_calls(case):
+def _fused_calls(case, w_contiguous=False):
   """{row name: [(shape label, fn)]}: every call a train step makes of rows
-  2-4 at this case's shapes, and the calls of rows 5 and 6 at layer 0's."""
+  2-4 at this case's shapes, and the calls of rows 5 and 6 at layer 0's.
+  W goes in as the tower passes it (the parameter's transposed view) or,
+  with ``w_contiguous``, as a contiguous [F_in, F_out] copy."""
   from ranking_tpu_torch.ops.cuda import fused_bn
   x, mask, act = case['x'], case['mask'], case['act']
-  ls = case['layers']
+  ls = [dict(l, w=l['w'].t().contiguous().t()) if w_contiguous else l
+        for l in case['layers']]
   top = len(ls) - 1
 
   def label(l):
@@ -430,14 +470,18 @@ def _fused_calls(case):
 
 
 def _fused_bounds(n=N_ROWS, dims=(F,) + HIDDEN):
-  """{row name: [(bound_ms, bound_by)]} for the float32 calls of
-  ``_fused_calls``: each input read once and each output written once over
-  the HBM rate, against the products' operations over the float32 rate."""
+  """{row name: [(bound_ms, bound_by, f32_pipe_ms)]} for the float32 calls
+  of ``_fused_calls``: each input read once and each output written once
+  over the HBM rate, against the products' operations over the rate of
+  float32-accurate work on the tensor cores (three TF32 passes); beside it
+  the larger of bytes and the same operations over the float32 pipes. Row
+  3 does no product: its operations count at the float32 rate."""
   size = 4  # bytes of a stored activation
 
-  def bound(byte_count, op_count):
-    return max((byte_count / HBM_BYTES_PER_S * 1e3, 'bytes'),
-               (op_count / F32_OPS_PER_S * 1e3, 'operations'))
+  def bound(byte_count, op_count, rate=SPLIT_TF32_OPS_PER_S):
+    bytes_ms = byte_count / HBM_BYTES_PER_S * 1e3
+    ms, by = max((bytes_ms, 'bytes'), (op_count / rate * 1e3, 'operations'))
+    return ms, by, max(bytes_ms, op_count / F32_OPS_PER_S * 1e3)
 
   f0 = dims[0]
   out = {'layer_forward': [], 'bwd_mats': []}
@@ -448,7 +492,7 @@ def _fused_bounds(n=N_ROWS, dims=(F,) + HIDDEN):
   top = len(dims) - 2
   f_top = dims[-1]
   out['bwd_stats'] = [bound(2 * n * f_top * size + 16 * f_top,
-                            4 * n * f_top)]
+                            4 * n * f_top, F32_OPS_PER_S)]
   for l in range(top, 0, -1):
     f_in, f_out = dims[l], dims[l + 1]
     fold = l == 1
@@ -471,9 +515,22 @@ def _fused_bounds(n=N_ROWS, dims=(F,) + HIDDEN):
   return out
 
 
+# Phase 3's tower shapes beyond the flagship's: N off the 128-row tile
+# (25601, 700), an output of 264 (two tiles and 8) and of 8, unaligned
+# widths (129, 130: rows not 16-byte aligned; 129 columns take the 136-wide
+# tile), and W as a contiguous [F_in, F_out] as well as the parameter's
+# transposed view. (label, N, dims, W contiguous)
+FUSED_EDGE_CASES = (
+    ('N=25601 136-264-8', 25601, (136, 264, 8), False),
+    ('N=700 129-130-136-8', 700, (129, 130, 136, 8), False),
+    ('N=700 136-264-8, W contiguous', 700, (136, 264, 8), True),
+    (f'N={N_ROWS} flagship, W contiguous', N_ROWS, (F,) + HIDDEN, True))
+
+
 def _check_fused_kernels(gen):
-  """Phase 3b: each fused function against its plain version. Returns
-  {row name: {'float32': (max abs, max rel), 'bfloat16': ...}}."""
+  """Phase 3b: each fused function against its plain version, and two
+  calls on the same inputs bitwise equal. Returns {row name: {'float32':
+  (max abs, max rel), 'bfloat16': ...}}."""
   import torch
   from ranking_tpu_torch.ops.cuda import fused_bn
   # Which outputs are stored in the activation type (the rest are float32
@@ -481,34 +538,46 @@ def _check_fused_kernels(gen):
   stored = {'layer_forward': (0,), 'bwd_stats': (), 'bwd_mats': (0,),
             'bwd_dx_only': (), 'bwd_dw_only': ()}
   worst = {}
+  edge_gen = torch.Generator().manual_seed(SEED + 2)
   for act in (torch.float32, torch.bfloat16):
     name = str(act).split('.')[-1]
-    for n, mask_kind in ((N_ROWS, 'ragged'), (700, 'ragged'), (700, 'ones'),
-                         (700, 'zeros')):
-      case = _fused_case(gen, n, mask_kind, act)
-      for row, calls in _fused_calls(case).items():
+    # The edge cases draw from their own generator, so that they leave the
+    # inputs of every later phase as they were without them.
+    cases = [(f'N={n}, {mask_kind} mask', gen, n, mask_kind, (F,) + HIDDEN,
+              False)
+             for n, mask_kind in ((N_ROWS, 'ragged'), (700, 'ragged'),
+                                  (700, 'ones'), (700, 'zeros'))]
+    cases += [(label, edge_gen, n, 'ragged', dims, w_contiguous)
+              for label, n, dims, w_contiguous in FUSED_EDGE_CASES]
+    for label, case_gen, n, mask_kind, dims, w_contiguous in cases:
+      case = _fused_case(case_gen, n, mask_kind, act, dims)
+      for row, calls in _fused_calls(case, w_contiguous).items():
         for shape, fn in calls:
           got = fn()
+          again = fn()
           with fused_bn.plain_versions():
             want = fn()
           torch.cuda.synchronize()
-          got, want = ((o,) if isinstance(o, torch.Tensor) else o
-                       for o in (got, want))
-          for i, (g, w) in enumerate(zip(got, want)):
+          got, again, want = ((o,) if isinstance(o, torch.Tensor) else o
+                              for o in (got, again, want))
+          for i, (g, a, w) in enumerate(zip(got, again, want)):
             if (g is None) != (w is None):
               _fail(f'{row} {shape}: output {i} missing on one side')
             if g is None:
               continue
+            if not torch.equal(g, a):
+              _fail(f'{row} {shape} {name} {label}: output {i} differs '
+                    'between two calls on the same inputs')
             err, rel = _rel_err(g, w)
             tol = FUSED_TOL[name]['stored' if i in stored[row] else 'summed']
             if not rel <= tol:
-              _fail(f'{row} {shape} {name} N={n} mask={mask_kind}: output '
-                    f'{i} differs from the plain version by {err} '
-                    f'({rel:.3g} of its largest value; allowed {tol:.3g})')
+              _fail(f'{row} {shape} {name} {label}: output {i} differs from '
+                    f'the plain version by {err} ({rel:.3g} of its largest '
+                    f'value; allowed {tol:.3g})')
             old = worst.setdefault(row, {}).get(name, (0.0, 0.0))
             worst[row][name] = (max(old[0], err), max(old[1], rel))
-      _log(f'kernel vs plain: fused BN rows 2-6, {name}, N={n}, '
-           f'{mask_kind} mask: within tolerance')
+      _log(f'kernel vs plain: fused BN rows 2-6, {name}, {label}: within '
+           'tolerance, two calls bitwise equal')
   return worst
 
 
@@ -756,13 +825,58 @@ def _second_path(gen):
   return {'bwd_dx_only': counts[3], 'bwd_dw_only': counts[4]}
 
 
+def _mm_calls(case):
+  """{row name: [(shape label, fn)]}: the bare matrix products of each call
+  of ``_fused_calls`` (rows 2, 4-6) as cuBLAS SGEMMs through ``torch.mm``
+  (TF32 off), on inputs of the same shapes: a yardstick of the product
+  engine, not the same function (no fold, no dy rebuild, no statistics)."""
+  import torch
+  x, ls = case['x'], case['layers']
+  top = len(ls) - 1
+  n = x.shape[0]
+  dev = x.device
+
+  def rnd(*shape):
+    return torch.randn(*shape, device=dev)
+
+  def label(l):
+    return f"{ls[l]['w'].shape[1]}->{ls[l]['w'].shape[0]}"
+
+  def fwd(l):
+    h, w = rnd(n, ls[l]['w'].shape[1]), ls[l]['w']
+    return lambda: torch.mm(h, w.t())
+
+  def mats(l, fold):
+    w = ls[l]['w']
+    f_out, f_in = w.shape
+    dy, z = rnd(n, f_out), rnd(n, f_in)
+    prods = [lambda: torch.mm(dy, w), lambda: torch.mm(z.t(), dy)]
+    if fold:
+      x0 = rnd(n, x.shape[1])
+      prods += [lambda: torch.mm(x0.t(), z), lambda: torch.mm(x0.t(), z)]
+    return lambda: [p() for p in prods]
+
+  w0 = ls[0]['w']
+  dy0, x0 = rnd(n, w0.shape[0]), rnd(n, w0.shape[1])
+  return {
+      'layer_forward': [(label(l), fwd(l)) for l in range(len(ls))],
+      'bwd_mats': [(label(l) + (' +fold' if l == 1 else ''), mats(l, l == 1))
+                   for l in range(top, 0, -1)],
+      'bwd_dx_only': [(label(0), lambda: torch.mm(dy0, w0))],
+      'bwd_dw_only': [(label(0), lambda: torch.mm(x0.t(), dy0))],
+  }
+
+
 def _time_fused(gen):
   """Phase 9a: {row name: {'ms', 'plain_ms', 'ms_by_shape', ...}} at the
-  flagship shapes, float32; device time per call from CUDA graph replays."""
+  flagship shapes, float32; device time per call from CUDA graph replays,
+  beside the plain version, the bound (tensor cores and float32 pipes) and
+  the bare products through ``torch.mm``."""
   import torch
   from ranking_tpu_torch.ops.cuda import fused_bn
   case = _fused_case(gen, N_ROWS, 'ragged', torch.float32)
   bounds = _fused_bounds()
+  mm_calls = _mm_calls(case)
   out = {}
   for row, calls in _fused_calls(case).items():
     by_shape, plain_by_shape = {}, {}
@@ -770,13 +884,26 @@ def _time_fused(gen):
       by_shape[shape] = _graph_ms(fn, calls=5, replays=10)
       with fused_bn.plain_versions():
         plain_by_shape[shape] = _graph_ms(fn, calls=5, replays=10)
+    mm_by_shape = {shape: _graph_ms(fn, calls=5, replays=10)
+                   for shape, fn in mm_calls.get(row, [])}
     out[row] = {'ms': sum(by_shape.values()),
                 'plain_ms': sum(plain_by_shape.values()),
-                'bound_ms': sum(b for b, _ in bounds[row]),
+                'bound_ms': sum(b[0] for b in bounds[row]),
                 'bound_by': max(bounds[row])[1],  # of the largest call
+                'bound_ms_f32_pipe': sum(b[2] for b in bounds[row]),
+                'mm_ms': sum(mm_by_shape.values()) if mm_by_shape else None,
                 'ms_by_shape': by_shape, 'plain_ms_by_shape': plain_by_shape,
                 'bound_ms_by_shape': dict(zip(by_shape,
-                                              (b for b, _ in bounds[row])))}
+                                              (b[0] for b in bounds[row]))),
+                'bound_ms_f32_pipe_by_shape': dict(zip(
+                    by_shape, (b[2] for b in bounds[row]))),
+                'mm_ms_by_shape': mm_by_shape}
+    _log(f'fused {row}: ' + ', '.join(
+        f'{k} {v:.4f} ms (plain {plain_by_shape[k]:.4f}, bound '
+        f'{out[row]["bound_ms_by_shape"][k]:.4f}, f32-pipe bound '
+        f'{out[row]["bound_ms_f32_pipe_by_shape"][k]:.4f}'
+        + (f', torch.mm {mm_by_shape[k]:.4f}' if k in mm_by_shape else '')
+        + ')' for k, v in by_shape.items()))
   return out
 
 
@@ -1667,6 +1794,20 @@ def _time_rows():
     bound_ms, bound_by = _rows_bound(n, ROWS_K, SPARSE_DIM, ROWS_K)
     out[f'n={n}'] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
+    if n == 1:
+      # Row 9 against index_copy_ in turns (kernel, library, library,
+      # kernel, ...): one reading of each is within the spread of the other.
+      pairs = []
+      for rep in range(5):
+        order = (call, library) if rep % 2 == 0 else (library, call)
+        times = {fn: _graph_ms(fn, calls=10, replays=10) for fn in order}
+        pairs.append((times[call], times[library]))
+      ratio = statistics.median(k / lib for k, lib in pairs)
+      out['n=1'].update(parity_pairs=pairs, parity_median_ratio=ratio)
+      _log('row 9 vs index_copy_, 5 alternating repetitions (kernel ms, '
+           'library ms): ' + ', '.join(f'({k:.5f}, {lib:.5f})'
+                                       for k, lib in pairs)
+           + f'; median kernel / library {ratio:.4f}')
   del tables, updates
   torch.cuda.empty_cache()
   return out
@@ -1722,6 +1863,17 @@ def main():
   _log(f'build: {len(sources)} kernel sources in {build_s:.2f} s ('
        + ', '.join(f'{k} {v:.1f} s' for k, v in build.BUILD_SECONDS.items())
        + ')')
+  # Proof that the fused tower's products run on the tensor cores: the
+  # `wgmma` instructions (HGMMA in the machine code) of each library, and
+  # its kernels' registers and spills from ptxas.
+  hgmma = {}
+  for source in ('fused_bn_fwd', 'fused_bn_bwd'):
+    path = build.library_path(source)
+    hgmma[source] = _sass_count(path, 'HGMMA')
+    if hgmma[source] == 0:
+      _fail(f'{source}: no HGMMA instruction in {path}')
+    _log(f'{source}: {hgmma[source]} HGMMA instructions; ptxas: '
+         + _ptxas_summary(path))
 
   # Phase 3: kernel vs plain on the card, bitwise.
   gen = torch.Generator().manual_seed(SEED)
@@ -1886,7 +2038,7 @@ def main():
       sparse_state, sparse_step, sparse_batch, rows, prefix='sparse')
   compact_unique_ms = _time_compact_unique(sparse_batch)
   timings = {
-      'build_s': build_s,
+      'build_s': build_s, 'hgmma': hgmma,
       'fused': fused_times, **train_times,
       'pairwise': pair_times, **rank_times, **long_list_memory,
       'rows': rows_times, **sparse_times,
@@ -1906,11 +2058,7 @@ def main():
     # Phase 16 (optional): the kernels' resources and where the device
     # time of an eval step, a serve request and the train steps goes.
     for source in sources:
-      log = build.compile_library(source, ('-Xptxas', '-v')) + '.log'
-      with open(log) as f:
-        _log(f'ptxas {source}: ' + ' | '.join(
-            line.strip()[:160] for line in f
-            if 'registers' in line or 'spill' in line))
+      _log(f'ptxas {source}: {_ptxas_summary(build.library_path(source))}')
     for name, fn, host_ms in (
         ('eval_step', lambda: step(predictor.model, dev_batch, states),
          eval_step_ms),
@@ -1941,9 +2089,12 @@ def main():
       'bound_by': bound_by, 'library_ms': library_ms}]
   # Rows 2-6. `ms`, `plain_ms` and `bound_ms` add up the calls that one
   # train step makes of the function (three layer shapes for the forward,
-  # two for the backward products); `ms_by_shape` splits them. No single
-  # PyTorch call computes what one of these functions computes, so there
-  # is no library time.
+  # two for the backward products); `ms_by_shape` splits them. The bound
+  # counts the products at the rate of float32-accurate work on the tensor
+  # cores (`bound_ms_f32_pipe`: the float32 pipes' rate). No single PyTorch
+  # call computes what one of these functions computes, so there is no
+  # library time; `mm_ms_by_shape` times the bare products through
+  # torch.mm, a yardstick of the engine and not the same function.
   replaces = {'layer_forward': 155, 'bwd_stats': 226, 'bwd_mats': 356,
               'bwd_dx_only': 433, 'bwd_dw_only': 489}
   launches_of = dict(zip(replaces, train_counts))
@@ -1963,7 +2114,11 @@ def main():
         'check': 'share of the largest value, FUSED_TOL',
         'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
         'bound_by': t['bound_by'], 'library_ms': None,
-        'ms_by_shape': t['ms_by_shape']})
+        'ms_by_shape': t['ms_by_shape'],
+        'bound_ms_by_shape': t['bound_ms_by_shape'],
+        'bound_ms_f32_pipe': t['bound_ms_f32_pipe'],
+        'bound_ms_f32_pipe_by_shape': t['bound_ms_f32_pipe_by_shape'],
+        'mm_ms_by_shape': t['mm_ms_by_shape']})
   # Rows 7-8. `ms`, `plain_ms` and `bound_ms` are those of the call the
   # LambdaRank path makes (B128xL200, logistic, the NDCG weight);
   # `ms_by_case` has the other shapes and modes. No single PyTorch call
@@ -1991,7 +2146,9 @@ def main():
   # n=2, recipe B's.
   for name, line, case, main_launches, extra in (
       ('scatter_rows', 131, 'n=1', sparse_counts[0],
-       {'launches_own_phase': rows_phase_launches[0]}),
+       {'launches_own_phase': rows_phase_launches[0],
+        'parity_pairs': rows_times['n=1']['parity_pairs'],
+        'parity_median_ratio': rows_times['n=1']['parity_median_ratio']}),
       ('scatter_rows_multi', 245, 'n=3', sparse_counts[1],
        {'launches_recipe_b': adagrad_counts[1],
         'launches_own_phase': rows_phase_launches[1],

@@ -27,8 +27,10 @@ from typing import Dict, List, Sequence
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), '_build')
 
+# `-Xptxas -v`: each kernel's registers, shared memory and spills go to the
+# log kept beside its library.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds nvcc took for each library built by this process (by file name).
@@ -74,7 +76,7 @@ def library_path(name: str, extra_flags: tuple = ()) -> str:
 def compile_library(name: str, extra_flags: tuple = ()) -> str:
   """Compiles ``csrc/<name>.cu`` unless its library exists; returns its path.
 
-  ``extra_flags`` (e.g. ``('-Xptxas', '-v')``) enter the hash, so a build
+  ``extra_flags`` (e.g. ``('-lineinfo',)``) enter the hash, so a build
   with them never shadows the plain one.
   """
   path = library_path(name, extra_flags)

@@ -47,11 +47,13 @@ from ranking_tpu_torch.ops.cuda import build
 
 Tensor = torch.Tensor
 
-# Blocks that the row-reducing products aim for: four waves of an H100's
-# 132 multiprocessors.
-_TARGET_BLOCKS = 528
-_TILE = 128        # csrc/fused_bn_common.cuh: kBM, kBN
-_SLICE_DEPTH = 8   # kBK
+# Blocks that the row-reducing products aim for: one wave of an H100's
+# 132 multiprocessors, one block each (a block's 256 threads hold over 200
+# registers each, and its ring of shared memory is 130 KB).
+_TARGET_BLOCKS = 132
+_TILE = 128        # csrc/fused_bn_common.cuh: kBM, and the usual tile width
+_WIDE_TILE = 136   # one tile across 129..136 output columns (F_0 = 136)
+_SLICE_DEPTH = 32  # kBK
 _STAT_ROWS = 256   # csrc/fused_bn_bwd.cu: kStatRowsPerBlock
 
 _FORCED: Optional[bool] = None  # None = fused for CUDA tensors only
@@ -118,16 +120,18 @@ def _lib(name: str):
   if lib is not None:
     return lib
   lib = build.load_library(name)
+  lib.fused_bn_weight_tiles_bytes.argtypes = [_I, _I, _I]
+  lib.fused_bn_weight_tiles_bytes.restype = _L
   if name == 'fused_bn_fwd':
     lib.fused_bn_layer_forward.argtypes = [
-        _P, _I, _P, _P, _P, _P, _I, _L, _L, _P, _P, _I, _P, _P, _P,
+        _P, _I, _P, _P, _P, _P, _I, _L, _L, _P, _P, _P, _I, _P, _P, _P,
         _I, _I, _I, _I, _P]
     lib.fused_bn_layer_forward.restype = _I
   else:
     lib.fused_bn_bwd_stats.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P, _I,
                                        _I, _P]
     lib.fused_bn_bwd_dx.argtypes = [
-        _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P, _I, _P, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P, _P, _I, _P, _P,
         _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P]
     lib.fused_bn_bwd_dw.argtypes = [
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
@@ -163,12 +167,18 @@ def _cdiv(a: int, b: int) -> int:
   return -(-a // b)
 
 
+def _tile_cols(cols: int) -> int:
+  """Output tile width the kernels take for ``cols`` output columns
+  (``fbn::tile_cols``)."""
+  return _WIDE_TILE if _TILE < cols <= _WIDE_TILE else _TILE
+
+
 def row_splits(n: int, n_i: int, n_j: int) -> Tuple[int, int]:
   """(splits, chunk_rows) of a product that reduces over ``n`` rows into
   an ``[n_i, n_j]`` output: enough row chunks to fill the card, each a
   multiple of the staged slice depth."""
-  tiles = _cdiv(n_i, _TILE) * _cdiv(n_j, _TILE)
-  splits = max(1, min(_cdiv(_TARGET_BLOCKS, tiles), _cdiv(n, _TILE)))
+  tiles = _cdiv(n_i, _TILE) * _cdiv(n_j, _tile_cols(n_j))
+  splits = max(1, min(_TARGET_BLOCKS // tiles, _cdiv(n, _TILE)))
   chunk = _cdiv(_cdiv(n, splits), _SLICE_DEPTH) * _SLICE_DEPTH
   return _cdiv(n, chunk), chunk
 
@@ -200,6 +210,25 @@ def _mask_vec(mask_col: Tensor, n: int) -> Tensor:
   if mask_col.numel() != n:
     raise ValueError(f'mask: {n} rows expected, got {tuple(mask_col.shape)}')
   return mask_col.reshape(n).to(torch.float32).contiguous()
+
+
+def _weight(w: Tensor, dtype: torch.dtype) -> Tensor:
+  """``w`` in ``dtype``, row-major or the transpose of a row-major matrix
+  (the kernels read either through its strides; other views are copied)."""
+  w = w.to(dtype)
+  rows, cols = w.shape
+  if ((w.stride(1) == 1 and w.stride(0) >= cols)
+      or (w.stride(0) == 1 and w.stride(1) >= rows)):
+    return w
+  return w.contiguous()
+
+
+def _weight_tiles(lib, k: int, n: int, w: Tensor) -> Tensor:
+  """Scratch for the kernels' copy of a K x N weight, split for the tensor
+  cores and laid out in their tiles (``split_weight`` in
+  csrc/fused_bn_common.cuh)."""
+  size = lib.fused_bn_weight_tiles_bytes(k, n, _is_bf16(w))
+  return torch.empty((size,), dtype=torch.uint8, device=w.device)
 
 
 def _check(err: int, what: str) -> None:
@@ -262,7 +291,7 @@ def layer_forward(x, mask_col, s_in, t_in, w, b, *, relu_in: bool,
   if w.ndim != 2 or w.shape[0] != f_in:
     raise ValueError(f'w: [{f_in}, F_out] expected, got {tuple(w.shape)}')
   f_out = w.shape[1]
-  w = w.to(act_dtype)
+  w = _weight(w, act_dtype)
   mask = _mask_vec(mask_col, n)
   s_in, t_in = _vec(s_in, f_in, 's_in'), _vec(t_in, f_in, 't_in')
   b = _vec(b, f_out, 'b')
@@ -272,13 +301,14 @@ def layer_forward(x, mask_col, s_in, t_in, w, b, *, relu_in: bool,
   col_sum = torch.empty((f_out,), dtype=torch.float32, device=x.device)
   col_ssq = torch.empty_like(col_sum)
   lib = _lib('fused_bn_fwd')
+  w_tiles = _weight_tiles(lib, f_in, f_out, w)
   with torch.cuda.device(x.device):
     _check(lib.fused_bn_layer_forward(
         x.data_ptr(), _is_bf16(x), mask.data_ptr(), s_in.data_ptr(),
         t_in.data_ptr(), w.data_ptr(), _is_bf16(w), w.stride(0), w.stride(1),
-        b.data_ptr(), y.data_ptr(), _is_bf16(y), partial.data_ptr(),
-        col_sum.data_ptr(), col_ssq.data_ptr(), n, f_in, f_out, int(relu_in),
-        _stream(x)), 'fused_bn_layer_forward')
+        w_tiles.data_ptr(), b.data_ptr(), y.data_ptr(), _is_bf16(y),
+        partial.data_ptr(), col_sum.data_ptr(), col_ssq.data_ptr(), n, f_in,
+        f_out, int(relu_in), _stream(x)), 'fused_bn_layer_forward')
   layer_forward.launches += 1
   return y, col_sum, col_ssq
 
@@ -391,9 +421,11 @@ def _launch_dx(dy_args, y, w, below=None, dx=None, dyhat_prev=None):
   if below is not None:
     x_in, s_in, t_in = below
     s1, s2, partial = new(f_in), new(f_in), new(2, _cdiv(n, _TILE), f_in)
-  _check(_lib('fused_bn_bwd').fused_bn_bwd_dx(
+  lib = _lib('fused_bn_bwd')
+  w_tiles = _weight_tiles(lib, f_out, f_in, w)
+  _check(lib.fused_bn_bwd_dx(
       *dy_args, w.data_ptr(), _is_bf16(w), w.stride(0), w.stride(1),
-      _ptr(x_in), 0 if x_in is None else _is_bf16(x_in), _ptr(s_in),
+      w_tiles.data_ptr(), _ptr(x_in), 0 if x_in is None else _is_bf16(x_in), _ptr(s_in),
       _ptr(t_in), _ptr(dx), 0 if dx is None else _is_bf16(dx),
       _ptr(dyhat_prev), 0 if dyhat_prev is None else _is_bf16(dyhat_prev),
       _ptr(partial), _ptr(s1), _ptr(s2), n, f_in, f_out, _stream(y)),
@@ -449,7 +481,7 @@ def bwd_mats(g, y, mask_col, s, t, c1, c2, x_in, s_in, t_in, w, *,
   f_in = x_in.shape[1]
   if w.shape != (f_in, f_out):
     raise ValueError(f'w: [{f_in}, {f_out}] expected, got {tuple(w.shape)}')
-  w = w.to(y.dtype)
+  w = _weight(w, y.dtype)
   s_in, t_in = _vec(s_in, f_in, 's_in'), _vec(t_in, f_in, 't_in')
   new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
       shape, dtype=dtype, device=y.device)
@@ -498,7 +530,7 @@ def bwd_dx_only(g, y, mask_col, s, t, c1, c2, w):
   n, f_out = y.shape
   if w.ndim != 2 or w.shape[1] != f_out:
     raise ValueError(f'w: [F_in, {f_out}] expected, got {tuple(w.shape)}')
-  w = w.to(y.dtype)
+  w = _weight(w, y.dtype)
   dx = torch.empty((n, w.shape[0]), dtype=torch.float32, device=y.device)
   with torch.cuda.device(y.device):
     _launch_dx(dy_args, y, w, dx=dx)

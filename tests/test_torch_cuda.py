@@ -147,6 +147,61 @@ def test_fused_bn_rows_equal_plain_versions(dev, n, dims, act):
   _assert_close(got, want, summed)
 
 
+@pytest.mark.parametrize('act', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('w_layout', ['parameter view', 'contiguous'])
+@pytest.mark.parametrize('n,dims', [(700, (136, 264, 8)),
+                                    (25601, (136, 8, 264)),
+                                    (700, (129, 130, 136))])
+def test_fused_bn_tile_edges_equal_plain_versions_and_repeat(dev, n, dims,
+                                                             w_layout, act):
+  """N off the 128-row tile, F_0 = 136, outputs of 8 and 264 columns,
+  unaligned widths, W as the parameter's transposed view or contiguous:
+  every function within the tolerances of its plain version, and two calls
+  on the same inputs bitwise equal."""
+  x, mask, (w0, w1), (bs, gammas, betas), g = _tower_case(dev, n, dims, act,
+                                                           seed=n + dims[1])
+  stored, summed = _TOL[act]
+  as_w = ((lambda w: w.t()) if w_layout == 'parameter view'
+          else (lambda w: w.t().contiguous()))
+  ones, zeros = torch.ones(dims[0], device=dev), torch.zeros(dims[0],
+                                                             device=dev)
+  s0, t0, s1, t1 = gammas[0], betas[0], gammas[1], betas[1]
+  c1, c2 = 0.01 * bs[1], 0.01 * betas[1]
+
+  def check(fn, tols):
+    got, again = fn(), fn()
+    with fused_bn.plain_versions():
+      want = fn()
+    torch.cuda.synchronize()
+    got, again, want = ((o,) if isinstance(o, torch.Tensor) else o
+                        for o in (got, again, want))
+    for g_i, a_i, w_i, tol in zip(got, again, want, tols):
+      assert (g_i is None) == (w_i is None)
+      if g_i is not None:
+        assert torch.equal(g_i, a_i)
+        _assert_close(g_i, w_i, tol)
+    return want
+
+  y0 = check(lambda: fused_bn.layer_forward(
+      x, mask, ones, zeros, as_w(w0), bs[0], relu_in=False, act_dtype=act),
+             (stored, summed, summed))[0]
+  y1 = check(lambda: fused_bn.layer_forward(
+      y0, mask, s0, t0, as_w(w1), bs[1], relu_in=True, act_dtype=act),
+             (stored, summed, summed))[0]
+  check(lambda: fused_bn.bwd_stats(g, y1, s1, t1), (summed, summed))
+  for kw in (dict(), dict(x0=x, emit_dx=False)):
+    check(lambda: fused_bn.bwd_mats(
+        g, y1, mask, s1, t1, c1, c2, y0, s0, t0, as_w(w1), relu_in=True,
+        emit_prev_stats=True, **kw), (stored,) + (summed,) * 5)
+  g0 = torch.randn(y0.shape, generator=torch.Generator().manual_seed(n)).to(
+      dev, act)
+  k1, k2 = 0.01 * bs[0], 0.01 * betas[0]
+  check(lambda: fused_bn.bwd_dx_only(g0, y0, mask, s0, t0, k1, k2,
+                                     as_w(w0)), (summed,))
+  check(lambda: fused_bn.bwd_dw_only(g0, y0, mask, s0, t0, k1, k2, x, ones,
+                                     zeros, relu_in=False), (summed,))
+
+
 @pytest.mark.parametrize('dims,input_grad,counts', [
     ((136, 96, 40, 24), False, [3, 1, 2, 0, 0]),
     ((136, 96, 40), True, [2, 1, 1, 1, 0]),

@@ -311,8 +311,11 @@ def test_switch_and_eligibility():
   for n, n_i, n_j in ((25600, 512, 1024), (700, 32, 16), (5, 300, 300)):
     splits, chunk = tfb.row_splits(n, n_i, n_j)
     assert splits >= 1 and splits * chunk >= n > (splits - 1) * chunk
-    assert chunk % 8 == 0  # a multiple of the kernels' slice depth
-  assert tfb.row_splits(25600, 512, 1024)[0] == 17  # 32 tiles x 17 >= 528
+    assert chunk % 32 == 0  # a multiple of the kernels' slice depth
+  # One wave of one block a multiprocessor: 32 tiles x 4 and, with one
+  # 136-wide tile across F_0 = 136, 8 tiles x 16, within 132 blocks.
+  assert tfb.row_splits(25600, 512, 1024)[0] == 4
+  assert tfb.row_splits(25600, 1024, 136)[0] == 16
 
 
 # --- Tower and DNNScorer in train mode, both BN paths ---------------------
