@@ -16,9 +16,12 @@ Phases (any failure exits non-zero before the last line is printed):
    on the card, required bitwise equal (ranks and sorted values), at the
    flagship shape (B=128, L=200, K=2, topn 1/5/10/200), with score ties,
    an all-invalid row and -inf scores, L=37, L at the top of the kernel's
-   domain, and B=1. Then the five fused masked-BN functions
-   (``ops/cuda/fused_bn.py``) against their plain versions at the flagship
-   widths 136-1024-512-256, in float32 and bfloat16, at N=25600 and N=700
+   domain, and B=1; and at L = 1, 31, 32, 33, 257 with K = 1 and 3 and topn
+   1 and L, with ties, -0.0 beside +0.0, -inf scores and an all-invalid
+   row (the edges of the kernel's keys and of its threads per item). Then
+   the five fused masked-BN functions (``ops/cuda/fused_bn.py``) against
+   their plain versions at the flagship widths 136-1024-512-256, in
+   float32 and bfloat16, at N=25600 and N=700
    with a ragged mask, at N=700 with an all-ones and an all-zero mask, and
    at the tile edges of ``FUSED_EDGE_CASES`` (tolerances at ``FUSED_TOL``:
    these are sums over up to 25600 rows in another order, so bitwise
@@ -29,7 +32,10 @@ Phases (any failure exits non-zero before the last line is printed):
    Then the fused pairwise sums (``ops/cuda/pairwise.py``), forward and
    backward, against their plain versions: the three loss types x the five
    lambda modes at B=128, L=200 with ragged lists, graded labels and item
-   weights, and the edges listed at ``_pairwise_cases`` (the count of
+   weights, and the edges listed at ``_pairwise_cases``, among them ranks
+   that are not whole numbers in [1, L] (the kernels' per-pair formula), a
+   list of one item, lists at the edges of the host's row tiles and the
+   longest list with discount tables and the shortest without (the count of
    non-zero pair weights must be equal, the sums and ``dlogits`` within
    ``PAIR_TOL`` of the output's largest value); and the whole
    ``PairwiseLogisticLoss`` with the NDCG lambda weight against autograd
@@ -303,16 +309,20 @@ def _host_ms(fn, iters, warmup=5):
 
 
 def _sort_case(gen, b, l, k, kind):
+  """'random', 'ties', 'special' (an all-invalid row, -inf scores) or
+  'edges' (all of them, and -0.0 beside +0.0)."""
   import torch
-  if kind == 'ties':
+  if kind in ('ties', 'edges'):
     scores = torch.randint(-3, 4, (b, l), generator=gen).float()
   else:
     scores = torch.randn(b, l, generator=gen)
   mask = torch.rand(b, l, generator=gen) > 0.3
-  if kind == 'special':
+  if kind in ('special', 'edges'):
     mask[0] = False
     scores[1, :5] = -math.inf
     mask[1, :3] = True
+  if kind == 'edges':
+    scores[:, ::2] = torch.where(scores[:, ::2] == 0, -0.0, scores[:, ::2])
   values = torch.randn(b, l, k, generator=gen)
   return scores, mask, values
 
@@ -1020,6 +1030,37 @@ def _pairwise_cases(gen):
   top = _pairwise_inputs(gen, 1, pw.MAX_LIST_SIZE)
   cases.append((f'top of the domain L{pw.MAX_LIST_SIZE} logistic v1', top,
                 static('logistic', 'v1', l=pw.MAX_LIST_SIZE)))
+  # The edges of the kernels' staging, tables and tiles, from a generator
+  # of their own, so that later phases keep their inputs.
+  edge = torch.Generator().manual_seed(SEED + 2)
+  # Ranks that are not whole numbers in [1, L] send a list to the per-pair
+  # formula: a few halves in every third list, one rank above L in the
+  # next; the third of each three keeps the tables.
+  odd = _pairwise_inputs(edge, B, L)
+  half = (torch.rand(B, L, generator=edge) < 0.05).to(odd['ranks'].device)
+  odd['ranks'][0::3] += torch.where(half[0::3], 0.5, 0.0)
+  odd['ranks'][1::3, 7] = L + 3.0
+  for mode in dcg:
+    cases.append((f'fractional ranks and ranks > L logistic {mode} topn 10',
+                  odd, static('logistic', mode, topn=10)))
+  one = _pairwise_inputs(edge, 1, 1, min_len=1)
+  for loss, mode in (('logistic', 'v1'), ('hinge', 'none')):
+    cases.append((f'no-pair list of one item {loss} {mode}', one,
+                  static(loss, mode, l=1)))
+  # Row tiles under the host's rule: every item valid, so that a tile's
+  # share is exactly ceil(L / tiles); L = 33, and the flagship's share
+  # times the tiles, one short and one over.
+  tiles = pw._tiles(B, L)
+  share = -(-L // tiles)
+  for l in (33, tiles * share - 1, tiles * share + 1):
+    full = _pairwise_inputs(edge, B, l, min_len=l)
+    for loss, mode in (('logistic', 'v1'), ('soft01', 'none')):
+      cases.append((f'tile edge B{B} L{l} all valid {loss} {mode}', full,
+                    static(loss, mode, l=l)))
+  # The largest list with tables, and the smallest without.
+  for l in (pw.MAX_TABLE_LIST_SIZE, pw.MAX_TABLE_LIST_SIZE + 1):
+    cases.append((f'tables edge L{l} logistic v2', _pairwise_inputs(edge, 1, l),
+                  static('logistic', 'v2', l=l)))
   return cases
 
 
@@ -1281,9 +1322,9 @@ def _long_list_step(gen):
 # neither (hinge); each counts one special-function result. The backward
 # needs l'(d) once per preference pair, added to one item and taken from the
 # other. Every one of the L^2 ordered pairs costs one label compare besides.
-# csrc/pairwise.cu spends more than this (it evaluates the discounts per
-# pair and its backward visits a pair from both rows): the bound is the
-# function's, not that kernel's.
+# csrc/pairwise.cu spends more than this (its branch-free loops weigh every
+# pair of unmasked items and evaluate its loss, and the backward visits a
+# pair from both rows): the bound is the function's, not that kernel's.
 _PAIR_WORK = {
     'weight': {'none': (1, 0), 'labeldiff': (3, 0), 'v2': (4, 0),
                'v1': (6, 0), 'yeti': (4, 0)},
@@ -1883,9 +1924,19 @@ def main():
             ('list_size_37', 3, 37, 3, 10, 'random'),
             ('top_of_domain', 2, cuda_sort.MAX_LIST_SIZE, 2, 100, 'ties'),
             ('batch_1', 1, L, 2, L, 'random')]
+  # The key layout's edges: a warp's width and one off it, a 4-key chunk
+  # and its padding, each count of threads an item; topn 1 and L; the
+  # single-channel and the unpaired (K != 2) scatter.
+  # Drawn from a generator of their own, so that later phases keep their
+  # inputs.
+  cases += [(f'list_size_{l}_k{k}_top{n}', 5, l, k, n, 'edges')
+            for l in (1, 31, 32, 33, 257) for k in (1, 3)
+            for n in sorted({1, l})]
+  edge_gen = torch.Generator().manual_seed(SEED + 1)
   max_abs_err = 0.0
   for name, b, l, k, topn, data in cases:
-    scores, mask, values = (t.to(dev) for t in _sort_case(gen, b, l, k, data))
+    scores, mask, values = (t.to(dev) for t in _sort_case(
+        edge_gen if data == 'edges' else gen, b, l, k, data))
     got_sorted, got_ranks = cuda_sort.sorted_values_and_ranks(
         scores, values, mask, topn)
     want_sorted, want_ranks = cuda_sort.sorted_values_and_ranks_reference(

@@ -60,10 +60,16 @@ DISCOUNT_LOG2_INVERSE = 0   # D(r) = log(2) / log(1 + r)
 DISCOUNT_INVERSE = 1        # D(r) = 1 / r
 DISCOUNT_LOG1P_INVERSE = 2  # D(r) = 1 / log(1 + r)
 
-# Items of one list whose seven per-item arrays fit a block's shared memory
+# Items of one list whose per-item arrays fit a block's shared memory
 # (csrc/pairwise.cu: kMaxListSize).
 MAX_LIST_SIZE = 8192
-_ROWS_PER_BLOCK = 32        # kRowsPerBlock
+# Longest list whose DCG discount tables fit beside its items
+# (kMaxTableListSize); longer lists take the per-pair formula.
+MAX_TABLE_LIST_SIZE = 6144
+# Blocks a call aims for: four 8-warp blocks for each of the H100's 132
+# multiprocessors, all resident at once at 64 registers a thread. A list's
+# rows are split over `_tiles(B, L)` blocks.
+_TARGET_BLOCKS = 512
 
 _LN2 = 0.6931471805599453
 
@@ -114,17 +120,17 @@ def _kernel():
     lib = build.load_library('pairwise')
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pairwise_sums_forward.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
+        p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, f, p]
     lib.pairwise_sums_backward.argtypes = [
-        p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, f, f, f, p]
+        p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, f, f, f, p]
     for fn in (lib.pairwise_sums_forward, lib.pairwise_sums_backward):
       fn.restype = i
-    for fn in (lib.pairwise_max_list_size, lib.pairwise_rows_per_block):
+    for fn in (lib.pairwise_max_list_size, lib.pairwise_max_table_list_size):
       fn.argtypes, fn.restype = [], i
-    if (lib.pairwise_max_list_size() != MAX_LIST_SIZE
-        or lib.pairwise_rows_per_block() != _ROWS_PER_BLOCK):
+    if (lib.pairwise_max_list_size() != MAX_LIST_SIZE or
+        lib.pairwise_max_table_list_size() != MAX_TABLE_LIST_SIZE):
       raise RuntimeError('csrc/pairwise.cu and pairwise.py disagree on the '
-                         'list size domain or the row tile')
+                         'list size domain')
     _lib = lib
   return _lib
 
@@ -274,6 +280,14 @@ def _static_args(loss_type, lambda_mode, discount_kind, topn, smooth_fraction):
           float(smooth_fraction), float(1.0 - smooth_fraction))
 
 
+def _tiles(b: int, l: int) -> int:
+  """Blocks that share one list's rows: enough for ``b`` lists to give
+  ``_TARGET_BLOCKS`` blocks, at most one for each 32 items, at least 1. A
+  block stages its whole list, so fewer, larger tiles pay for staging once
+  more rows."""
+  return max(1, min(-(-l // 32), _TARGET_BLOCKS // max(b, 1)))
+
+
 def _check(err: int, what: str) -> None:
   if err != 0:
     raise RuntimeError(f'{what} launch failed: CUDA error {err}')
@@ -298,14 +312,14 @@ def pairwise_sums_forward(labels, logits, mask, norm_w, gain, ranks, scale,
   out = torch.empty((b, 3), dtype=torch.float32, device=device)
   if b == 0 or l == 0:
     return out.zero_()
-  tiles = -(-l // _ROWS_PER_BLOCK)
+  tiles = _tiles(b, l)
   partial_f = torch.empty((b * tiles, 2), dtype=torch.float32, device=device)
   partial_n = torch.empty((b * tiles,), dtype=torch.int32, device=device)
   lib = _kernel()
   with torch.cuda.device(device):
     _check(lib.pairwise_sums_forward(
         *(t.data_ptr() for t in ops), partial_f.data_ptr(),
-        partial_n.data_ptr(), out.data_ptr(), b, l,
+        partial_n.data_ptr(), out.data_ptr(), b, l, tiles,
         *_static_args(loss_type, lambda_mode, discount_kind, topn,
                       smooth_fraction),
         torch.cuda.current_stream(device).cuda_stream),
@@ -339,8 +353,9 @@ def pairwise_sums_backward(labels, logits, mask, norm_w, gain, ranks, scale,
   with torch.cuda.device(device):
     _check(lib.pairwise_sums_backward(
         *(t.data_ptr() for t in ops), ct.data_ptr(), 3, dlogits.data_ptr(),
-        b, l, *_static_args(loss_type, lambda_mode, discount_kind, topn,
-                            smooth_fraction),
+        b, l, _tiles(b, l),
+        *_static_args(loss_type, lambda_mode, discount_kind, topn,
+                      smooth_fraction),
         torch.cuda.current_stream(device).cuda_stream),
            'pairwise_sums_backward')
   pairwise_sums_backward.launches += 1

@@ -50,8 +50,9 @@ def _ordered_keys(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
   """int64 keys whose descending order is (score desc, valid first).
 
   A float32's bits, with the low 31 bits flipped for negative values, order
-  like the floats themselves; -0.0 is folded into +0.0 first, as the float
-  comparison in the kernel treats them equal.
+  like the floats themselves; -0.0 is folded into +0.0 first, as the
+  kernel's keys fold it (csrc/sort.cu builds the same order from the same
+  bits, with the position's complement below the validity bit).
   """
   scores = torch.where(scores == 0, torch.zeros_like(scores), scores)
   bits = scores.contiguous().view(torch.int32).to(torch.int64)

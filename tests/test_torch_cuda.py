@@ -50,6 +50,25 @@ def test_kernel_equals_plain_version(dev, b, l, k, topn, ties):
   assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize('l', [1, 31, 32, 33, 257])
+@pytest.mark.parametrize('k', [1, 3])
+def test_kernel_equals_plain_version_at_key_edges(dev, l, k):
+  """Each count of threads an item, a warp's width and one off it, the
+  key chunks' padding; -0.0 beside +0.0, -inf scores, an all-invalid row;
+  topn 1 and L."""
+  scores, mask, values = _case(5, l, k, True, seed=l + k)
+  scores[:, ::2] = torch.where(scores[:, ::2] == 0, -0.0, scores[:, ::2])
+  scores[1, :5] = -float('inf')
+  mask[2] = False
+  scores, mask, values = (t.to(dev) for t in (scores, mask, values))
+  for topn in sorted({1, l}):
+    got = cuda_sort.sorted_values_and_ranks(scores, values, mask, topn)
+    want = cuda_sort.sorted_values_and_ranks_reference(scores, values, mask,
+                                                       topn)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_dispatch_sends_float_channels_to_the_kernel(dev):
   scores, mask, values = (t.to(dev) for t in _case(4, 50, 1, True, seed=1))
   labels = values[..., 0]
@@ -265,7 +284,8 @@ def _pairwise_case(dev, b, l, seed):
                               ranks, scale, ct)]
 
 
-@pytest.mark.parametrize('b,l', [(128, 200), (5, 11), (3, 1), (2, 1030)])
+@pytest.mark.parametrize('b,l', [(128, 200), (5, 11), (3, 1), (2, 1030),
+                                 (128, 33), (128, 199), (128, 201), (1, 1)])
 @pytest.mark.parametrize('lambda_mode', range(5))
 @pytest.mark.parametrize('loss_type', range(3))
 def test_pairwise_rows_equal_plain_versions(dev, loss_type, lambda_mode, b, l):
@@ -279,6 +299,30 @@ def test_pairwise_rows_equal_plain_versions(dev, loss_type, lambda_mode, b, l):
     want_grad = pairwise.pairwise_sums_backward(*ops, *static, ct)
   torch.cuda.synchronize()
   assert torch.equal(got[:, 2], want[:, 2])   # the count: exact
+  _assert_close(got[:, :2], want[:, :2], 1e-5)
+  _assert_close(got_grad, want_grad, 1e-5)
+
+
+@pytest.mark.parametrize('lambda_mode', [pairwise.LAMBDA_DCG_V2,
+                                         pairwise.LAMBDA_DCG_V1,
+                                         pairwise.LAMBDA_DCG_V2_NEIGHBOR])
+def test_pairwise_rows_take_any_ranks(dev, lambda_mode):
+  """Ranks that are not whole numbers in [1, L] (halves in some lists, a
+  rank above L in others) send those lists to the per-pair formula; the
+  other lists keep the discount tables."""
+  *ops, ct = _pairwise_case(dev, 12, 200, seed=lambda_mode)
+  ranks = ops[5]
+  ranks[0::3, :: 7] += 0.5
+  ranks[1::3, 3] = 203.0
+  static = (pairwise.LOSS_LOGISTIC, lambda_mode,
+            pairwise.DISCOUNT_LOG2_INVERSE, 10.0, 0.25)
+  got = pairwise.pairwise_sums_forward(*ops, *static)
+  got_grad = pairwise.pairwise_sums_backward(*ops, *static, ct)
+  with pairwise.plain_versions():
+    want = pairwise.pairwise_sums_forward(*ops, *static)
+    want_grad = pairwise.pairwise_sums_backward(*ops, *static, ct)
+  torch.cuda.synchronize()
+  assert torch.equal(got[:, 2], want[:, 2])
   _assert_close(got[:, :2], want[:, :2], 1e-5)
   _assert_close(got_grad, want_grad, 1e-5)
 

@@ -352,3 +352,116 @@ def test_wrappers_count_only_kernel_launches_and_check_shapes():
     tp._checked(*(torch.zeros(1, tp.MAX_LIST_SIZE + 1),) * 6, torch.ones(1))
   with pytest.raises(ValueError, match='gain'):
     tp._checked(*ops[:4], ops[4][:, :3], *ops[5:])
+
+
+# --- the arithmetic of the CUDA kernels' design (csrc/pairwise.cu) ----------
+
+_ALL_MODES = [(tp.LAMBDA_NONE, tp.DISCOUNT_LOG1P_INVERSE),
+              (tp.LAMBDA_LABELDIFF, tp.DISCOUNT_LOG1P_INVERSE)]
+_ALL_MODES += [(mode, kind) for mode in _DCG
+               for kind in (tp.DISCOUNT_LOG2_INVERSE, tp.DISCOUNT_INVERSE,
+                            tp.DISCOUNT_LOG1P_INVERSE)]
+
+
+def _design_inputs(seed, b=4, l=40):
+  """Ragged graded lists with whole ranks in [1, L], as compute_ranks
+  gives them, and unit left-item weights."""
+  rng = np.random.RandomState(seed)
+  labels = rng.randint(0, 5, (b, l)).astype(np.float32)
+  labels[:, l // 2:] = np.where(rng.rand(b, l - l // 2) < 0.5, -1.0,
+                                labels[:, l // 2:])
+  valid = labels >= 0
+  clean = np.where(valid, labels, 0.0).astype(np.float32)
+  t = {k: torch.from_numpy(v) for k, v in dict(
+      labels=labels, logits=(rng.randn(b, l) * 2).astype(np.float32),
+      mask=valid.astype(np.float32), norm_w=np.ones((b, l), np.float32),
+      gain=(2.0 ** clean - 1.0).astype(np.float32),
+      ranks=np.stack([rng.permutation(l) + 1.0 for _ in range(b)]).astype(
+          np.float32),
+      scale=rng.uniform(0.5, 3.0, (b,)).astype(np.float32)).items()}
+  return t
+
+
+def _table_weights(d, mode, kind, topn, smooth):
+  """The pair weights as the CUDA kernels' table path forms them: the
+  discount terms read from (L + 1)-entry tables at |r_i - r_j| and
+  max(r_i, r_j) (or each rank, for V1's capped discounts), each entry made
+  by the plain version's own discount arithmetic on a whole number."""
+  lab_i, lab_j = d['labels'][:, :, None], d['labels'][:, None, :]
+  pw = ((lab_i - lab_j) > 0).to(torch.float32) * (
+      d['mask'][:, :, None] * d['mask'][:, None, :])
+  if mode == tp.LAMBDA_LABELDIFF:
+    pw = pw * torch.abs(lab_i - lab_j)
+  elif mode in _DCG:
+    l = d['labels'].shape[1]
+    k = torch.arange(l + 1, dtype=torch.float32)
+    gap = torch.stack([
+        torch.abs(tp._discount(kind, x[None]) - tp._discount(kind, x[None]
+                                                              + 1.0))[0]
+        if x > 0 else torch.tensor(0.0) for x in k])
+    mult = torch.where(k > topn, torch.ones_like(k) / (
+        1.0 - tp._discount(kind, k)), 1.0)
+    cap = torch.where(k > topn, 0.0, tp._discount(kind, k))
+    r = d['ranks'].to(torch.int64)
+    r_i, r_j = r[:, :, None], r[:, None, :]
+    dist = torch.abs(r_i - r_j)
+    pair_gain = torch.abs(d['gain'][:, :, None] - d['gain'][:, None, :])
+    if mode == tp.LAMBDA_DCG_V1:
+      in_topn = (r_i <= topn) | (r_j <= topn)
+      u = torch.where(in_topn, gap[dist], 0.0)
+      v = torch.abs(cap[r_i] - cap[r_j])
+      pair_disc = (1.0 - smooth) * u + smooth * v
+      pair_disc = pair_disc * in_topn.to(torch.float32)
+    else:
+      pair_disc = torch.where(dist > 0, gap[dist] * mult[torch.maximum(
+          r_i, r_j)], 0.0)
+      if mode == tp.LAMBDA_DCG_V2_NEIGHBOR:
+        pair_disc = pair_disc * (dist == 1).to(torch.float32)
+    pw = pw * pair_gain * pair_disc * d['scale'][:, None, None]
+  return pw * d['norm_w'][:, :, None]
+
+
+def _slab_weights(d, mode, kind, topn, smooth, labels=None):
+  pw, _ = tp._slab(d['labels'] if labels is None else labels, d['logits'],
+                   d['mask'], d['norm_w'], d['gain'], d['ranks'], d['scale'],
+                   mode, kind, topn, smooth)
+  return pw
+
+
+@pytest.mark.parametrize('lambda_mode,discount_kind', _ALL_MODES)
+def test_table_weights_equal_the_pair_formula_bitwise(lambda_mode,
+                                                      discount_kind):
+  """Every table entry is bitwise what the pair formula computes, so the
+  count of non-zero pair weights cannot move (topn below L: the capped and
+  the multiplied discounts both occur)."""
+  d = _design_inputs(seed=lambda_mode * 3 + discount_kind)
+  for topn, smooth in ((7.0, 0.25), (40.0, 0.0)):
+    want = _slab_weights(d, lambda_mode, discount_kind, topn, smooth)
+    got = _table_weights(d, lambda_mode, discount_kind, topn, smooth)
+    assert (want != 0).sum() > 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize('lambda_mode,discount_kind', _ALL_MODES)
+def test_pair_weight_is_symmetric_bitwise(lambda_mode, discount_kind):
+  """The weight of (i, j) over the left item's weight is that of (j, i):
+  flipping the labels flips every preference, and the weight of each pair
+  read the other way round is bitwise the same. So the backward may
+  evaluate a pair's weight once and pick the item weight by the sign of
+  l_i - l_j."""
+  d = _design_inputs(seed=10 + lambda_mode * 3 + discount_kind)
+  for topn, smooth in ((7.0, 0.25), (40.0, 0.0)):
+    forward = _slab_weights(d, lambda_mode, discount_kind, topn, smooth)
+    flipped = _slab_weights(d, lambda_mode, discount_kind, topn, smooth,
+                            labels=torch.where(d['mask'] > 0, -d['labels'],
+                                               d['labels']))
+    assert (forward != 0).sum() > 0
+    assert torch.equal(forward.view(torch.int32),
+                       flipped.transpose(1, 2).contiguous().view(torch.int32))
+
+
+def test_tiles_fill_the_card_and_cover_the_rows():
+  assert tp._tiles(128, 200) == 4      # the LambdaRank step
+  assert tp._tiles(16, 1024) == 32     # the long-list step
+  assert tp._tiles(3, 1) == 1 and tp._tiles(1, 33) == 2
+  assert tp._tiles(1024, 200) == 1

@@ -146,3 +146,53 @@ def test_cpu_wrapper_never_launches_the_kernel():
                                      torch.from_numpy(values),
                                      torch.from_numpy(mask))
   assert torch_sort.sorted_values_and_ranks.launches == before
+
+
+def _packed_keys(scores, mask):
+  """The CUDA kernel's key (csrc/sort.cu) as int64: bits 47..16 the
+  order-preserving bits of the filled score (-0.0 folded into +0.0), bit
+  15 validity, bits 14..0 the position's complement to 32767."""
+  s = torch.from_numpy(scores)
+  valid = torch.from_numpy(mask)
+  inf = torch.full_like(s, float('inf'))
+  row_min = torch.amin(torch.where(valid, s, inf), dim=1, keepdim=True)
+  row_min = torch.where(row_min == float('inf'), 0.0, row_min)
+  filled = torch.where(valid, s, row_min)
+  filled = torch.where(filled == 0, 0.0, filled)
+  bits = filled.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+  ordered = torch.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF, bits | 1 << 31)
+  pos = torch.arange(s.shape[1], dtype=torch.int64)
+  return (ordered << 16) | (valid.to(torch.int64) << 15) | (32767 - pos)
+
+
+def _edge_case(l):
+  """Score ties, +0.0 beside -0.0, -inf scores, an all-invalid row."""
+  scores, mask, values = _case(6, l, 2, 'ties', seed=l)
+  scores[:, ::3] = 0.0
+  scores[:, 1::3] = np.where(scores[:, 1::3] == 0, -0.0, scores[:, 1::3])
+  scores[2, ::2] = -0.0
+  scores[3, : max(1, l // 4)] = -np.inf
+  mask[0] = False
+  mask[4] = True
+  return scores, mask, values
+
+
+@pytest.mark.parametrize('l', [1, 33, 257])
+def test_packed_key_order_is_the_kernel_order(l, interpret):
+  scores, mask, values = _edge_case(l)
+  keys = _packed_keys(scores, mask)
+  assert torch.unique(keys[1]).numel() == l        # one key an item
+  # rank_i = 1 + #{j : key_j > key_i}, as the kernel counts it.
+  ranks = 1 + (keys[:, None, :] > keys[:, :, None]).sum(dim=2)
+  order = torch.sort(keys, dim=1, descending=True).indices
+  np.testing.assert_array_equal(
+      order.numpy(),
+      torch_sort.sort_order(torch.from_numpy(scores),
+                            torch.from_numpy(mask)).numpy())
+  _, want_ranks = psort.sorted_values_and_ranks(
+      jnp.asarray(scores), jnp.asarray(values), jnp.asarray(mask), l)
+  np.testing.assert_array_equal(ranks.numpy().astype(np.float32),
+                                np.asarray(want_ranks))
+  positions = torch.empty_like(ranks)
+  positions.scatter_(1, order, torch.arange(1, l + 1).expand(6, l))
+  assert torch.equal(positions, ranks)
