@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's serving, eval, training and sparse embedding
-training paths on one CUDA card.
+training paths, its K-step dispatch and its training pipeline on one CUDA
+card.
 
     python3 chip_smoke.py [--profile]
 
@@ -115,18 +116,51 @@ Phases (any failure exits non-zero before the last line is printed):
    table and the bound; row 9 and ``index_copy_`` also in 5 alternating
    repetitions, with the median ratio), the sparse step with the rows
    switch on and off, and ``compact_unique``;
-16. with ``--profile`` only: every kernel's registers and spills from
+16. K steps a dispatch (``make_multi_step``: one train step captured in a
+   CUDA graph and replayed, K = 10) for the softmax, LambdaRank and sparse
+   recipe A steps at their full shapes, and for the softmax step under a
+   warmup + linear-decay schedule with global-norm clipping and under a
+   constant rate with clipping that is scaled by 0.1 between two
+   dispatches (the plateau hook): after a first dispatch (warm-up and
+   capture), 10 replays on the state and 10 eager steps on a copy of it
+   must be bitwise equal (parameters, buffers, moments, step tensors, the
+   rate and count, tables and their moments, per-step losses), or, where
+   two eager runs already differ, within ``SPARSE_TOL``; the rate must have
+   moved (schedule) or be the scaled one (plateau), and the clip must have
+   bound the gradients. For the three plain recipes the port's kernels
+   that one replay runs (``torch.profiler``'s names) must equal one eager
+   step's, and the launches recorded at capture the per-step counts above;
+   ms a step by CUDA events with and without the graph, host ms a
+   dispatch, the device's idle share;
+17. the pipeline: MSLR-shaped LIBSVM files written from the seed
+   (``PIPE_*``), parsed by the native parser, and
+   ``SimplePipeline.train_and_validate`` on the flagship model at
+   B128xL200 with ``steps_per_execution`` 10 for 2 epochs of 50 steps,
+   then a new pipeline resumed from its checkpoint to 3 (``resume_dataset``)
+   under ``torch.profiler``: one capture a run, each wrapper's own kernel
+   on the card in the resumed run as often as its eager calls plus its
+   captured launches times the replays, finite metrics,
+   ``metrics.jsonl``, event files, checkpoints and ``export/latest``, whose
+   params reload into a ``Predictor`` that scores bitwise as the trained
+   model; steady-state lists/s (CUDA events around the first run's
+   dispatches that only replay, per epoch window and over the dispatches
+   alone) beside the whole first run's, the eval's ms and the parser's
+   MB/s;
+18. with ``--profile`` only: every kernel's registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
    busiest kernels of one eval step, one B=128 serve request and one train
    step of each loss and of the sparse step.
 
 Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``.
+line (each kernel also with its launches in phase 17, as its wrapper counts
+them and on the card in the resumed run, and per replay of phase 16's
+graphs), and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1866,6 +1900,548 @@ def _time_compact_unique(batch):
                    calls=10, replays=10)
 
 
+# --- phase 16: K steps a dispatch, one captured step replayed ----------------
+
+KSTEPS = 10                       # steps a dispatch, the pipeline's default
+# The pipeline phase: MSLR-WEB30K-shaped LIBSVM files written from the seed
+# (every row lists all 136 features; 20 to 200 documents a list, labels
+# 0-4). MSLR-WEB30K Fold1 trains on 18,919 queries; 1,280 train and 256
+# validation lists keep the files near 180 and 36 MB and the phase inside
+# the script's time limit: a cut of scale, not of shape.
+PIPE_TRAIN_LISTS, PIPE_VALID_LISTS = 1280, 256
+PIPE_MIN_DOCS = 20
+PIPE_EPOCHS, PIPE_RESUMED_EPOCHS = 2, 3
+# An epoch is five passes over the train lists (the stream repeats), so
+# that each epoch makes 5 dispatches: after the first run's warm-up and
+# capture, 9 dispatches that only replay, the steady-state window.
+PIPE_STEPS_PER_EPOCH = 5 * (PIPE_TRAIN_LISTS // B)
+
+
+def _state_tensors(state):
+  """Every tensor a train step changes, by name: parameters and buffers,
+  the dense optimizer's moments, step tensors, rate and count, and the
+  lazy-row optimizer's moments and count."""
+  import torch
+  out = {f'model/{k}': v for k, v in state.model.state_dict().items()}
+  names = {id(p): k for k, p in state.model.named_parameters()}
+  for p, st in state.optimizer.state.items():
+    for k, v in st.items():
+      if torch.is_tensor(v):
+        out[f'optimizer/{names[id(p)]}/{k}'] = v
+  out['optimizer/lr'] = state.optimizer.lr
+  out['optimizer/count'] = state.optimizer.count
+  for path, v in (state.sparse_opt_state or {}).items():
+    for k, t in (v.items() if isinstance(v, dict) else [('', v)]):
+      out[f'sparse/{path}/{k}'] = t
+  return out
+
+
+def _state_diff(a, b):
+  """(names that differ, largest |a - b| as a share of the largest |b|)."""
+  ta, tb = _state_tensors(a), _state_tensors(b)
+  if set(ta) != set(tb):
+    _fail(f'state structures differ: {sorted(set(ta) ^ set(tb))}')
+  differ = [k for k in ta if not ta[k].equal(tb[k])]
+  worst = max((_rel_err(ta[k].float(), tb[k].float())[1] for k in differ),
+              default=0.0)
+  return differ, worst
+
+
+def _kernel_counts(fn):
+  """How often each of the port's kernels ran on the card during one call
+  of ``fn``, by name, from ``torch.profiler``'s device events."""
+  import collections
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  counts = collections.Counter(
+      k for e in prof.events()
+      if e.device_type == torch.autograd.DeviceType.CUDA
+      and not getattr(e, 'is_user_annotation', False)
+      for k in _PORT_KERNELS if re.search(rf'\b{k}\b', e.name))
+  return dict(counts)
+
+
+# The __global__ functions of ranking_tpu_torch/ops/cuda/csrc.
+_PORT_KERNELS = ('rank_sort_kernel', 'layer_forward_kernel',
+                 'split_weight_kernel', 'reduce_partials_kernel',
+                 'bwd_stats_kernel', 'bwd_dx_kernel', 'over_rows_kernel',
+                 'pairwise_fwd_kernel', 'pairwise_finalize_kernel',
+                 'pairwise_bwd_kernel', 'scatter_rows_kernel')
+
+
+def _kstep_recipes(gen):
+  """(name, make_state, step fn, 2 x KSTEPS flat host batches, per-step
+  wrapper launches, whether the step takes a generator, a hook applied to
+  the state between the first dispatch and the held one, whether the
+  recipe is timed) of the three train steps at their full shapes, then
+  the softmax step under the optimizer hooks that one graph must serve: a
+  warmup + linear-decay schedule with global-norm clipping (from
+  ``PipelineHparams``, as the pipeline builds it), and a constant rate
+  with clipping whose rate tensor is scaled by 0.1 between the two
+  dispatches (the plateau hook). The LambdaRank step draws its rank-tie
+  shuffles from a CUDA generator, as the pipeline's steps do."""
+  import copy
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import lambda_weights as lw
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.pipeline import hparams as hparams_lib
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  fused = {'layer_forward': 3, 'bwd_stats': 1, 'bwd_mats': 2}
+  for name, loss in (('softmax', 'softmax_loss'),
+                     ('lambdarank', 'pairwise_logistic_loss')):
+    extra = {} if name == 'softmax' else {
+        'lambda_weight': lw.create_ndcg_lambda_weight()}
+    step = steps.make_train_step(loss_registry.make_loss_fn(loss, **extra),
+                                 device='cuda')
+    batches = [dataset.flatten_examples(_make_batch(gen, B))
+               for _ in range(2 * KSTEPS)]
+    model = _train_model(gen)
+    make = lambda model=model: state_lib.create_train_state(  # noqa: E731
+        model, state_lib.adam(1e-3), device='cuda')
+    launches = dict(fused) if name == 'softmax' else dict(
+        fused, pairwise_sums_forward=1, pairwise_sums_backward=1,
+        sorted_values_and_ranks=1)
+    yield (name, make, step, batches, launches, name == 'lambdarank', None,
+           True)
+  batches = [_sparse_batch(gen) for _ in range(2 * KSTEPS)]
+  model = _sparse_model(gen)
+  efs = sparse_lib.derive_embed_features(
+      sparse_lib.named_paths(model), batches[0].context,
+      steps.restore_flat_examples(batches[0]).examples)
+  step = steps.make_sparse_train_step(
+      loss_registry.make_loss_fn('softmax_loss'), efs, device='cuda')
+  make = lambda: state_lib.create_train_state(  # noqa: E731
+      model, state_lib.adam(1e-3), device='cuda',
+      sparse_tx=sparse_lib.LazyAdam(1e-3))
+  yield ('sparse_a', make, step, batches, {'scatter_rows_multi': 2}, False,
+         None, True)
+  del batches, model, efs
+  # The hooks' recipes draw from a generator of their own, so that the
+  # pipeline phase keeps its inputs.
+  hooks_gen = torch.Generator().manual_seed(SEED + 3)
+  step = steps.make_train_step(loss_registry.make_loss_fn('softmax_loss'),
+                               device='cuda')
+  batches = [dataset.flatten_examples(_make_batch(hooks_gen, B))
+             for _ in range(2 * KSTEPS)]
+  model = _train_model(hooks_gen)
+  for name, kw, between in (
+      ('softmax_schedule_clip',
+       dict(lr_schedule='linear_decay', warmup_steps=5,
+            num_epochs=1, steps_per_epoch=3 * KSTEPS), None),
+      ('softmax_plateau_clip', {}, lambda state: state.optimizer.lr.mul_(0.1))):
+    hp = hparams_lib.PipelineHparams(
+        model_dir='unused', validation_steps=1, learning_rate=1e-3,
+        loss='softmax_loss', gradient_clip_norm=1.0,
+        **dict(dict(num_epochs=1, steps_per_epoch=1), **kw))
+    make = lambda model=model, hp=hp: state_lib.create_train_state(  # noqa: E731
+        copy.deepcopy(model), hparams_lib.optimizer_from_hparams(hp),
+        device='cuda')
+    yield name, make, step, batches, fused, False, between, False
+
+
+def _kstep_phase(gen):
+  """Phase 16: K = 10 steps a dispatch through ``make_multi_step``, one
+  captured step replayed, for the softmax, LambdaRank and sparse (recipe
+  A) steps at their full shapes, and for the softmax step under a
+  warmup + linear-decay schedule with clipping and under a constant rate
+  with clipping scaled by 0.1 between dispatches. A first dispatch warms
+  up and captures (then a recipe's hook acts on the state); a copy of the
+  state then takes 10 eager steps while the state takes 10 replays on the
+  same batches, and the two must be bitwise equal (every parameter,
+  buffer, moment, step tensor, rate, table and count, and the per-step
+  losses), unless two eager runs already differ (a step with atomics),
+  where the graph is held within the recipe's tolerance. The LambdaRank
+  step reads a CUDA generator registered with its graph; each eager copy
+  starts from a copy of the generator's state. For the three timed steps
+  the port's kernels that one replay runs, by ``torch.profiler``'s names,
+  must equal those of one eager step, and the wrappers' launches recorded
+  at capture must equal the per-step counts of phases 7, 10 and 13. Times:
+  ms a step by CUDA events around whole dispatches, graph and eager; host
+  ms a dispatch; the device's idle share within a dispatch."""
+  import copy
+  import torch
+  from ranking_tpu_torch.train import steps
+  out = {}
+  for (name, make, step, batches, launches, random, between,
+       timed) in _kstep_recipes(gen):
+    warm = steps.stack_batches(batches[:KSTEPS]).to('cuda')
+    run = steps.stack_batches(batches[KSTEPS:]).to('cuda')
+    state = make()
+    rng = (torch.Generator(device='cuda').manual_seed(SEED) if random
+           else None)
+
+    def rng_copy():
+      if rng is None:
+        return None
+      out = torch.Generator(device='cuda')
+      out.set_state(rng.get_state())
+      return out
+
+    graphed = steps.make_multi_step(step, device='cuda')
+    eager = steps.make_multi_step(step, device='cuda', eager=True)
+    state, _ = graphed(state, warm, rng)
+    if graphed.captures != 1 or graphed.replays != KSTEPS - graphed.warmup:
+      _fail(f'{name}: {graphed.captures} captures and {graphed.replays} '
+            f'replays in the first dispatch')
+    if graphed.captured_launches != launches:
+      _fail(f'{name}: launches recorded at capture '
+            f'{graphed.captured_launches} != per-step {launches}')
+    lr_before = state.optimizer.lr.clone()
+    if between is not None:
+      between(state)
+    twins = [copy.deepcopy(state), copy.deepcopy(state)]
+    twin_rngs = [rng_copy(), rng_copy()]
+    torch.cuda.synchronize()
+    state, graph_metrics = graphed(state, run, rng)
+    if graphed.captures != 1:
+      _fail(f'{name}: the second dispatch captured again')
+    twins[0], eager_metrics = eager(twins[0], run, twin_rngs[0])
+    twins[1], _ = eager(twins[1], run, twin_rngs[1])
+    torch.cuda.synchronize()
+    repeats = not _state_diff(twins[0], twins[1])[0]
+    differ, worst = _state_diff(state, twins[0])
+    losses_equal = torch.equal(graph_metrics['loss'], eager_metrics['loss'])
+    tol = 0.0 if repeats else SPARSE_TOL
+    if (repeats and (differ or not losses_equal)) or worst > tol:
+      _fail(f'{name}: {KSTEPS} replays vs {KSTEPS} eager steps: '
+            f'{len(differ)} tensors differ ({differ[:4]}), worst '
+            f'{worst:.3g}, losses equal {losses_equal}; two eager runs '
+            f'repeat each other: {repeats}')
+    if not timed:
+      # The hooks must have acted: the rate moved (the schedule) or is the
+      # scaled one (the plateau hook), and the clip bound the eager twin's
+      # last gradients (their global norm is the clip norm).
+      opt = state.optimizer
+      lr_now = opt.lr.item()
+      if between is None:
+        if lr_now == lr_before.item():
+          _fail(f'{name}: the scheduled rate did not move ({lr_now})')
+      elif not torch.equal(opt.lr, lr_before * 0.1):
+        _fail(f'{name}: rate {lr_now} after the plateau hook, not '
+              f'{(lr_before * 0.1).item()}')
+      grads = [p.grad for p in twins[0].model.parameters()
+               if p.grad is not None]
+      norm = torch.sqrt(sum(torch.sum(g * g) for g in grads)).item()
+      if abs(norm - opt.clip_norm) > 1e-4 * opt.clip_norm:
+        _fail(f'{name}: the last eager step\'s clipped global norm is '
+              f'{norm}, not the clip norm {opt.clip_norm}')
+      out[name] = {'bitwise': repeats, 'max_rel_diff': worst,
+                   'lr_first_dispatch_end': lr_before.item(),
+                   'lr_end': lr_now, 'clipped_global_norm': norm}
+      _log(f'K-step {name}: {KSTEPS} replays == {KSTEPS} eager steps '
+           + ('bitwise' if repeats else f'within {worst:.3g}')
+           + f'; rate {lr_before.item():.6g} -> {lr_now:.6g}'
+           + (' (scaled by 0.1 between the dispatches)' if between else '')
+           + f'; clipped global norm {norm:.6f}')
+      del state, twins, graphed, eager, warm, run
+      torch.cuda.empty_cache()
+      continue
+    twins.pop()
+    # Kernels a replay runs against kernels an eager step runs.
+    one = steps.stack_batches(batches[:1]).to('cuda')
+    replay_counts = _kernel_counts(lambda: graphed(state, one, rng))
+    eager_counts = _kernel_counts(lambda: eager(twins[0], one,
+                                                twin_rngs[0]))
+    if not eager_counts or replay_counts != eager_counts:
+      _fail(f'{name}: kernels of one replay {replay_counts} != one eager '
+            f'step {eager_counts}')
+    graph_fn = lambda: graphed(state, run, rng)  # noqa: E731
+    eager_fn = lambda: eager(twins[0], run, twin_rngs[0])  # noqa: E731
+    t = {'graph_ms_per_step': _event_ms(graph_fn, 3, warmup=1) / KSTEPS,
+         'eager_ms_per_step': _event_ms(eager_fn, 3, warmup=1) / KSTEPS}
+    for kind, fn in (('graph', graph_fn), ('eager', eager_fn)):
+      host = []
+      for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+      torch.cuda.synchronize()
+      wall = _host_ms(fn, 3, warmup=1)
+      device = _profile(fn, calls=1)['device_ms']
+      t[f'{kind}_host_ms_per_dispatch'] = statistics.median(host)
+      t[f'{kind}_wall_ms_per_dispatch'] = wall
+      t[f'{kind}_device_ms_per_dispatch'] = device
+      t[f'{kind}_device_idle_share'] = 1.0 - device / wall
+    t.update(bitwise=repeats, max_rel_diff=worst,
+             kernels_per_replay=replay_counts,
+             launches_per_step=graphed.captured_launches)
+    out[name] = t
+    _log(f'K-step {name}: {KSTEPS} replays == {KSTEPS} eager steps '
+         + ('bitwise' if repeats else f'within {worst:.3g} (two eager runs '
+            'differ: atomics)')
+         + f'; kernels per replay == per eager step {replay_counts}; '
+         f'ms a step {t["graph_ms_per_step"]:.4f} graph, '
+         f'{t["eager_ms_per_step"]:.4f} eager; host ms a dispatch '
+         f'{t["graph_host_ms_per_dispatch"]:.3f} / '
+         f'{t["eager_host_ms_per_dispatch"]:.3f}; idle share '
+         f'{t["graph_device_idle_share"]:.3f} / '
+         f'{t["eager_device_idle_share"]:.3f}')
+    del state, twins, graphed, eager, warm, run, one
+    torch.cuda.empty_cache()
+  return out
+
+
+# --- phase 17: the pipeline end to end ----------------------------------------
+
+
+def _count_records(path):
+  """Records in a TFRecord file (8-byte length, 4-byte length CRC, the
+  payload, 4-byte payload CRC)."""
+  import struct
+  n = 0
+  with open(path, 'rb') as f:
+    while True:
+      header = f.read(12)
+      if len(header) < 12:
+        return n
+      f.seek(struct.unpack('<Q', header[:8])[0] + 4, 1)
+      n += 1
+
+
+# The __global__ function that each kernel wrapper launches once a call
+# (its other kernels are shared with other wrappers).
+_ENTRY_KERNEL = {
+    'sorted_values_and_ranks': 'rank_sort_kernel',
+    'layer_forward': 'layer_forward_kernel', 'bwd_stats': 'bwd_stats_kernel',
+    'bwd_mats': 'bwd_dx_kernel', 'bwd_dx_only': 'bwd_dx_kernel',
+    'bwd_dw_only': 'over_rows_kernel',
+    'pairwise_sums_forward': 'pairwise_fwd_kernel',
+    'pairwise_sums_backward': 'pairwise_bwd_kernel',
+    'scatter_rows': 'scatter_rows_kernel',
+    'scatter_rows_multi': 'scatter_rows_kernel'}
+
+
+class _TimedDispatches:
+  """Wraps a pipeline's ``GraphedSteps``: CUDA events around each dispatch
+  that only replays (no warm-up step, no capture), kept with the step it
+  started at and its lists."""
+
+  def __init__(self, inner):
+    self.inner, self.spans = inner, []
+
+  def __getattr__(self, name):
+    return getattr(self.inner, name)
+
+  def __call__(self, state, batch, generator=None):
+    import torch
+    first, replays = state.step, self.inner.replays
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = self.inner(state, batch, generator)
+    end.record()
+    steps, lists = batch.mask.shape[:2]
+    if self.inner.replays - replays == steps:
+      self.spans.append((first, steps * lists, start, end))
+    return out
+
+
+def _steady_state(spans, steps_per_epoch):
+  """lists/s of the replay-only dispatches: over each epoch's window (from
+  its first such dispatch's start to its last one's end on the card, the
+  host feed between them included) and over the dispatches alone."""
+  windows = {}
+  for first, lists, start, end in spans:
+    windows.setdefault(first // steps_per_epoch, []).append(
+        (lists, start, end))
+  per_window = []
+  for epoch, items in sorted(windows.items()):
+    lists = sum(n for n, _, _ in items)
+    ms = items[0][1].elapsed_time(items[-1][2])
+    per_window.append({'epoch': epoch + 1, 'dispatches': len(items),
+                       'lists': lists, 'ms': ms,
+                       'lists_per_s': lists / ms * 1e3})
+  lists = sum(w['lists'] for w in per_window)
+  dispatch_ms = [start.elapsed_time(end) for _, _, start, end in spans]
+  return {'windows': per_window,
+          'loop_lists_per_s': lists / sum(w['ms'] for w in per_window) * 1e3,
+          'dispatch_ms': dispatch_ms,
+          'dispatch_lists_per_s': lists / sum(dispatch_ms) * 1e3}
+
+
+def _pipeline_phase(gen):
+  """Phase 17: ``SimplePipeline.train_and_validate`` over LIBSVM files on
+  the card: 2 epochs, timed (steady-state lists/s from CUDA events around
+  the dispatches that only replay), then a new pipeline resumed from the
+  checkpoint to 3 epochs under ``torch.profiler``, whose device events
+  count the port's kernels that ran. Returns (numbers, wrapper launches in
+  both runs, each wrapper's kernel launches on the card in the resumed
+  run)."""
+  import os
+  import shutil
+  import torch
+  from ranking_tpu_torch.data import libsvm
+  from ranking_tpu_torch.data import native
+  from ranking_tpu_torch.pipeline import hparams as hparams_lib
+  from ranking_tpu_torch.pipeline import pipeline as pipeline_lib
+  from ranking_tpu_torch.pipeline import serving
+  from ranking_tpu_torch.train import checkpoint
+  from ranking_tpu_torch.train import steps
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      '.scratch', 'chip_smoke_pipeline')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  out = {}
+  try:
+    paths = {}
+    t0 = time.perf_counter()
+    for split, lists, seed in (('train', PIPE_TRAIN_LISTS, SEED + 7),
+                               ('vali', PIPE_VALID_LISTS, SEED + 8)):
+      paths[split] = os.path.join(root, f'{split}.txt')
+      libsvm.write_random_lists(paths[split], lists, F, PIPE_MIN_DOCS, L,
+                                seed=seed)
+    out['write_s'] = time.perf_counter() - t0
+    out['file_mb'] = {k: os.path.getsize(p) / 1e6 for k, p in paths.items()}
+    parses = native.parses
+    t0 = time.perf_counter()
+    builder = pipeline_lib.LibSVMDatasetBuilder(
+        paths['train'], paths['vali'], L, F, B, seed=SEED)
+    out['parse_s'] = time.perf_counter() - t0
+    if native.parses != parses + 2:
+      _fail('the LIBSVM files were not parsed by the native parser')
+    out['parse_mb_per_s'] = sum(out['file_mb'].values()) / out['parse_s']
+    _log(f'pipeline: wrote {PIPE_TRAIN_LISTS} + {PIPE_VALID_LISTS} lists '
+         f'({out["file_mb"]["train"]:.1f} + {out["file_mb"]["vali"]:.1f} MB) '
+         f'in {out["write_s"]:.2f} s (cut of scale: MSLR-WEB30K Fold1 trains '
+         f'on 18,919 queries); native parse {out["parse_s"]:.2f} s, '
+         f'{out["parse_mb_per_s"]:.1f} MB/s')
+    steps_per_epoch = PIPE_STEPS_PER_EPOCH
+
+    def hparams(epochs):
+      return hparams_lib.PipelineHparams(
+          model_dir=os.path.join(root, 'model'), num_epochs=epochs,
+          steps_per_epoch=steps_per_epoch, validation_steps=10 ** 6,
+          learning_rate=1e-3, loss='softmax_loss',
+          steps_per_execution=KSTEPS, resume_dataset=True)
+
+    timed = []
+    make_multi_step = steps.make_multi_step
+
+    def make_timed(*args, **kwargs):
+      timed.append(_TimedDispatches(make_multi_step(*args, **kwargs)))
+      return timed[-1]
+
+    before = steps.kernel_launch_counts()
+    t0 = time.perf_counter()
+    pipe = pipeline_lib.SimplePipeline(_train_model(gen), builder,
+                                       hparams(PIPE_EPOCHS), device='cuda')
+    with mock.patch.object(steps, 'make_multi_step', make_timed):
+      history = pipe.train_and_validate()
+    out['first_run_s'] = time.perf_counter() - t0
+    if pipe._multi_step is not timed[0]:
+      _fail('pipeline: the timed K-step dispatch was not the one that ran')
+    steady = _steady_state(timed[0].spans, steps_per_epoch)
+    resumed = pipeline_lib.SimplePipeline(
+        _train_model(gen), builder, hparams(PIPE_RESUMED_EPOCHS),
+        device='cuda')
+    between = steps.kernel_launch_counts()
+    result = {}
+    t0 = time.perf_counter()
+    device_counts = _kernel_counts(
+        lambda: result.update(history=resumed.train_and_validate()))
+    out['resumed_run_s'] = time.perf_counter() - t0  # under the profiler
+    resumed_history = result['history']
+    after = steps.kernel_launch_counts()
+    runs = (pipe._multi_step, resumed._multi_step)
+    for run, epochs in zip(runs, (PIPE_EPOCHS,
+                                  PIPE_RESUMED_EPOCHS - PIPE_EPOCHS)):
+      if (run.captures != 1
+          or run.replays != epochs * steps_per_epoch - run.warmup):
+        _fail(f'pipeline: {run.captures} captures, {run.replays} replays '
+              f'in {epochs} epochs')
+    steady_replays = sum(n for _, n, _, _ in timed[0].spans) // B
+    if steady_replays != PIPE_EPOCHS * steps_per_epoch - KSTEPS:
+      _fail(f'pipeline: {steady_replays} steps in replay-only dispatches')
+    # Each wrapper's own kernel on the card in the resumed run, against
+    # what the wrappers recorded: their eager calls, and what the capture
+    # recorded times the replays.
+    wrappers = {n: after[n] - before[n] for n in after}
+    measured = {}
+    for name, kernel in _ENTRY_KERNEL.items():
+      recorded = after[name] - between[name]
+      expected = recorded + resumed._multi_step.captured_launches.get(
+          name, 0) * (resumed._multi_step.replays - 1)
+      sharing = [n for n, k in _ENTRY_KERNEL.items()
+                 if k == kernel and n != name and wrappers[n]]
+      got = device_counts.get(kernel, 0) if wrappers[name] else 0
+      if wrappers[name] and sharing:
+        _fail(f'pipeline: {name} and {sharing} both ran; {kernel} cannot '
+              'be told apart')
+      if got != expected:
+        _fail(f'pipeline: {kernel} ran {got} times in the resumed run; '
+              f'the wrapper {name} recorded {recorded} calls and its graph '
+              f'replayed {resumed._multi_step.replays} times: {expected}')
+      measured[name] = got
+    state = resumed.final_state
+    if state.step != PIPE_RESUMED_EPOCHS * steps_per_epoch:
+      _fail(f'pipeline: resumed to step {state.step}')
+    for h in (history, resumed_history):
+      if not all(math.isfinite(v) for v in h.values()):
+        _fail(f'pipeline: a metric is not finite: {h}')
+    model_dir = os.path.join(root, 'model')
+    with open(os.path.join(model_dir, 'metrics.jsonl')) as f:
+      logged = [json.loads(line) for line in f]
+    if [r['step'] for r in logged] != [
+        (e + 1) * steps_per_epoch for e in range(PIPE_RESUMED_EPOCHS)]:
+      _fail(f'pipeline: metrics.jsonl steps {[r["step"] for r in logged]}')
+    # Two runs' event records: a header each and one record an epoch (two
+    # writers opened in the same second share a file, as TF's do).
+    tb_dir = os.path.join(model_dir, 'tensorboard')
+    events = sum(_count_records(os.path.join(tb_dir, name))
+                 for name in os.listdir(tb_dir))
+    ckpts = sorted(os.listdir(os.path.join(model_dir, 'checkpoints')))
+    latest = os.path.join(model_dir, 'export', 'latest')
+    if (events != 2 + PIPE_RESUMED_EPOCHS
+        or f'ckpt_{state.step}.pt' not in ckpts
+        or not os.path.exists(os.path.join(latest, 'params.pt'))):
+      _fail(f'pipeline: outputs missing: {events} event records, '
+            f'checkpoints {ckpts}, export '
+            f'{os.listdir(os.path.dirname(latest))}')
+    exported = serving.Predictor(
+        _train_model(gen), state_dict=checkpoint.load_params(latest),
+        device='cuda')
+    trained = serving.Predictor(state.model, device='cuda')
+    probe = next(iter(builder.valid_batches()))
+    if not (exported.score_batch(probe) == trained.score_batch(probe)).all():
+      _fail('pipeline: the exported params score differently')
+    t0 = time.perf_counter()
+    resumed._run_eval(state)
+    torch.cuda.synchronize()
+    out['eval_ms'] = (time.perf_counter() - t0) * 1e3
+    out.update(history=history, resumed_history=resumed_history,
+               lists_per_s=history['examples_per_sec'],
+               steady=steady, checkpoints=ckpts,
+               wrapper_launches=wrappers,
+               device_launches_resumed_run=device_counts,
+               launches_recorded_at_capture=[r.captured_launches
+                                             for r in runs])
+    windows = ', '.join(f'{w["lists_per_s"]:.1f}' for w in steady['windows'])
+    _log(f'pipeline: {PIPE_EPOCHS} epochs of {steps_per_epoch} steps at '
+         f'B={B}, L={L}, {KSTEPS} steps a dispatch, then resumed to '
+         f'{PIPE_RESUMED_EPOCHS} (under the profiler): one capture a run, '
+         f'{runs[0].replays} and {runs[1].replays} replays; loss '
+         f'{history["loss"]:.4f} -> {resumed_history["loss"]:.4f}, ndcg@10 '
+         f'{resumed_history["ndcg@10"]:.4f}; steady state (replay-only '
+         f'dispatches, events) {steady["loop_lists_per_s"]:.1f} lists/s '
+         f'over the loop (windows {windows}), '
+         f'{steady["dispatch_lists_per_s"]:.1f} over the dispatches alone; '
+         f'whole first run {out["lists_per_s"]:.1f} lists/s; eval of '
+         f'{PIPE_VALID_LISTS} lists {out["eval_ms"]:.1f} ms; kernels on the '
+         f'card in the resumed run {device_counts}; exported params reload '
+         'and score equal')
+    return out, wrappers, measured
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2088,6 +2664,15 @@ def main():
   sparse_times, sparse_fn = _time_train_step(
       sparse_state, sparse_step, sparse_batch, rows, prefix='sparse')
   compact_unique_ms = _time_compact_unique(sparse_batch)
+  # Phase 16: K steps a dispatch, one captured step replayed.
+  kstep = _kstep_phase(gen)
+  # Phase 17: the pipeline end to end. Counts start at 0 here.
+  _reset_all_launches()
+  pipeline_numbers, pipeline_launches, pipeline_device = _pipeline_phase(gen)
+  for name in ('sorted_values_and_ranks', 'layer_forward', 'bwd_stats',
+               'bwd_mats'):
+    if pipeline_launches[name] == 0 or pipeline_device[name] == 0:
+      _fail(f'the pipeline never launched {name}')
   timings = {
       'build_s': build_s, 'hgmma': hgmma,
       'fused': fused_times, **train_times,
@@ -2102,11 +2687,12 @@ def main():
       'eval_step_ms': eval_step_ms,
       'eval_lists_per_s': B / eval_step_ms * 1e3,
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
+      'kstep': kstep, 'pipeline': pipeline_numbers,
       'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
-    # Phase 16 (optional): the kernels' resources and where the device
+    # Phase 18 (optional): the kernels' resources and where the device
     # time of an eval step, a serve request and the train steps goes.
     for source in sources:
       _log(f'ptxas {source}: {_ptxas_summary(build.library_path(source))}')
@@ -2217,6 +2803,18 @@ def main():
         'max_abs_err': rows_err, 'check': 'bitwise', 'cases': rows_cases,
         'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
         'bound_by': t['bound_by'], 'library_ms': t['library_ms']})
+  # Launches in phase 17: as the wrappers count them over both runs (eager
+  # calls, and one a capture), and on the card in the resumed run (the
+  # wrapper's own kernel among torch.profiler's device events); and per
+  # replay of phase 16's graphs (what the capture recorded, which phase 16
+  # holds against the profiler's count of one replay).
+  per_replay = {**kstep['softmax']['launches_per_step'],
+                **kstep['lambdarank']['launches_per_step'],
+                **kstep['sparse_a']['launches_per_step']}
+  for entry in kernels:
+    entry['launches_pipeline_wrapper'] = pipeline_launches[entry['name']]
+    entry['launches_pipeline_resumed_device'] = pipeline_device[entry['name']]
+    entry['launches_per_replay'] = per_replay.get(entry['name'], 0)
   print(card)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

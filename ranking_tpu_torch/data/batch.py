@@ -9,7 +9,7 @@ labels ``[B, L]`` with -1.0 padding, and a boolean mask ``[B, L]``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional
 
 import torch
 
@@ -89,3 +89,33 @@ def batch_from_labels(
       examples={k: torch.as_tensor(v) for k, v in (examples or {}).items()},
       labels=labels,
       mask=mask)
+
+
+def stack_numpy_batches(batches: Iterable[RankingBatch],
+                        pin_memory: bool = False) -> RankingBatch:
+  """K host batches of one shape as one batch with a leading steps axis.
+
+  Leaves may be numpy arrays or tensors. With ``pin_memory`` each stacked
+  leaf is written straight into page-locked host memory, from which one
+  asynchronous copy moves the K batches to the card.
+  """
+  batches = list(batches)
+  if not batches:
+    raise ValueError('no batches to stack (empty stream?)')
+
+  def stack(items):
+    items = [torch.as_tensor(x) for x in items]
+    out = torch.empty((len(items),) + tuple(items[0].shape),
+                      dtype=items[0].dtype, pin_memory=pin_memory)
+    return torch.stack(items, out=out)
+
+  first = batches[0]
+  return RankingBatch(
+      context={k: stack([b.context[k] for b in batches])
+               for k in first.context},
+      examples={k: stack([b.examples[k] for b in batches])
+                for k in first.examples},
+      labels=({k: stack([b.labels[k] for b in batches])
+               for k in first.labels} if isinstance(first.labels, dict)
+              else stack([b.labels for b in batches])),
+      mask=stack([b.mask for b in batches]))

@@ -1,0 +1,355 @@
+"""End-to-end train-and-validate pipelines.
+
+The port's copy of ``ranking_tpu/pipeline/pipeline.py`` for its LIBSVM main
+path: ``LibSVMDatasetBuilder``, ``SimplePipeline.train_and_validate`` and
+``RankingPipeline``. The pipeline owns the train state, the train step (K
+steps per dispatch, on CUDA as replays of one captured graph), the eval
+loop, checkpoint and resume, the plateau learning rate, early stopping,
+best tracking, the metrics log, TensorBoard scalars and the latest and
+best exports.
+
+It takes an ``nn.Module`` that already holds its weights: the port has no
+``init(rng)``, so a run that should start from the JAX package's weights
+converts them first (``convert.from_flax``). There is no mesh: one card.
+A dataset builder is any object with ``train_batches()`` and
+``valid_batches()`` iterators of ``RankingBatch``. ``SimpleDatasetBuilder``
+and ``MultiLabelDatasetBuilder`` (serialized ELWC through the C++ loader)
+and ``MultiTaskPipeline`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import os
+import time
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional
+
+import torch
+from torch import nn
+
+from ranking_tpu_torch.data import dataset
+from ranking_tpu_torch.data.batch import RankingBatch, stack_numpy_batches
+from ranking_tpu_torch.ops import loss_registry, metric_registry
+from ranking_tpu_torch.ops.reductions import Reduction
+from ranking_tpu_torch.pipeline.hparams import (
+    PipelineHparams, optimizer_from_hparams, sparse_optimizer_from_hparams)
+from ranking_tpu_torch.train import checkpoint
+from ranking_tpu_torch.train import sparse as sparse_lib
+from ranking_tpu_torch.train import state as state_lib
+from ranking_tpu_torch.train import steps
+from ranking_tpu_torch.utils import tensorboard
+from ranking_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+class LibSVMDatasetBuilder:
+  """In-memory LIBSVM dataset builder for the pipelines.
+
+  Both files are parsed once, by the native parser; the train stream
+  repeats forever, shuffled from ``seed``, and the validation stream is one
+  pass that keeps its ragged final batch.
+  """
+
+  def __init__(self, train_path: str, valid_path: str, list_size: int,
+               num_features: int, train_batch_size: int,
+               valid_batch_size: Optional[int] = None,
+               seed: Optional[int] = 17):
+    from ranking_tpu_torch.data import libsvm
+    self.train_x, self.train_y, _ = libsvm.load_libsvm_lists(
+        train_path, list_size, num_features)
+    self.valid_x, self.valid_y, _ = libsvm.load_libsvm_lists(
+        valid_path, list_size, num_features)
+    self.train_batch_size = train_batch_size
+    self.valid_batch_size = valid_batch_size or train_batch_size
+    self.seed = seed
+
+  def train_batches(self) -> Iterator[RankingBatch]:
+    return dataset.in_memory_batches(self.train_x, self.train_y,
+                                     self.train_batch_size, epochs=None,
+                                     shuffle=True, seed=self.seed)
+
+  def valid_batches(self) -> Iterator[RankingBatch]:
+    return dataset.in_memory_batches(self.valid_x, self.valid_y,
+                                     self.valid_batch_size, epochs=1,
+                                     shuffle=False, drop_remainder=False)
+
+
+class SimplePipeline:
+  """Single-task pipeline with the reference's default metric suite:
+  NDCG@1/5/10 and full-list NDCG (keras/pipeline.py:659-730).
+
+  ``device`` (default ``'cuda'``; without a card it raises) is where the
+  model, its optimizers and every step live.
+  """
+
+  def __init__(
+      self,
+      model: nn.Module,
+      dataset_builder: Any,
+      hparams: PipelineHparams,
+      metric_fns: Optional[Mapping[str, Callable]] = None,
+      loss_fn: Optional[Callable] = None,
+      device: DeviceLike = 'cuda',
+  ):
+    self.device = resolve_device(device)
+    self.model = model
+    self.dataset_builder = dataset_builder
+    self.hparams = hparams
+    self.metric_fns = dict(metric_fns) if metric_fns else (
+        self._default_metrics())
+    if loss_fn is not None:
+      self.loss_fn = loss_fn
+    elif isinstance(hparams.loss, Mapping):
+      raise NotImplementedError(
+          'a dict of task losses (MultiTaskPipeline) is not ported yet')
+    else:
+      self.loss_fn = loss_registry.make_loss_fn(
+          hparams.loss, reduction=Reduction(hparams.loss_reduction),
+          weights_feature_name=hparams.weights_feature_name)
+      if isinstance(hparams.loss_weights, (int, float)):
+        # A scalar loss_weights scales the single loss.
+        base_fn, w = self.loss_fn, float(hparams.loss_weights)
+        self.loss_fn = lambda *a, **kw: w * base_fn(*a, **kw)
+    self.final_state: Optional[state_lib.TrainState] = None
+
+  def _default_metrics(self):
+    hp = self.hparams
+    weighted = (hp.weights_feature_name
+                if hp.use_weighted_metrics else None)
+    fns = {}
+    for topn in (1, 5, 10, None):
+      name = f'ndcg@{topn}' if topn else 'ndcg'
+      fns[name] = metric_registry.make_ranking_metric_fn(
+          metric_registry.RankingMetricKey.NDCG, topn=topn)
+      if weighted:
+        fns[f'weighted_{name}'] = metric_registry.make_ranking_metric_fn(
+            metric_registry.RankingMetricKey.NDCG, topn=topn,
+            weights_feature_name=weighted)
+    return fns
+
+  # -- build ---------------------------------------------------------------
+
+  def _build(self, sample: RankingBatch) -> state_lib.TrainState:
+    hp = self.hparams
+    sparse_tx = sparse_optimizer_from_hparams(hp)
+    state = state_lib.create_train_state(
+        self.model, optimizer_from_hparams(hp), device=self.device,
+        sparse_tx=sparse_tx)
+    state.generator = torch.Generator(self.device).manual_seed(
+        (hp.seed or 0) + 1)
+    # The reference monitors the validation stream: 'val_' + metric, with
+    # metric 'loss' meaning the validation loss (keras/pipeline.py:497-532).
+    self._monitor = ('val_loss' if hp.best_exporter_metric == 'loss'
+                     else hp.best_exporter_metric)
+    if self._monitor != 'val_loss' and self._monitor not in self.metric_fns:
+      raise ValueError(
+          f'best_exporter_metric {hp.best_exporter_metric!r} is not among '
+          f'the computed validation metrics: '
+          f'{sorted(self.metric_fns) + ["loss"]}')
+    self.ckpt = checkpoint.CheckpointManager(
+        os.path.join(hp.model_dir, 'checkpoints'),
+        best_metric=(self._monitor if hp.export_best_model else None),
+        best_mode=('max' if hp.best_exporter_metric_higher_better else 'min'))
+    state = self.ckpt.restore(state)  # preemption-safe resume
+    self._tb = tensorboard.SummaryWriter(
+        os.path.join(hp.model_dir, 'tensorboard'))
+    if sparse_tx is not None:
+      efs = sparse_lib.derive_embed_features(
+          sparse_lib.named_paths(state.model), sample.context,
+          sample.examples, table_pattern=sparse_tx.table_pattern)
+      tables = set(sparse_lib.partition(sparse_lib.named_paths(state.model),
+                                        sparse_tx)[1])
+      if not efs or {ef.param_path for ef in efs} != tables:
+        raise NotImplementedError(
+            'lazy tables that no batch feature names need the '
+            'dense-gradient lazy update, which is not ported yet')
+      step_fn = steps.make_sparse_train_step(self.loss_fn, efs,
+                                             device=self.device)
+    else:
+      step_fn = steps.make_train_step(self.loss_fn, device=self.device)
+    self._train_step = step_fn
+    # steps_per_execution (keras/pipeline.py:287-289): K steps a dispatch.
+    self._multi_step = steps.make_multi_step(step_fn, device=self.device)
+    self._eval_step = steps.make_eval_step(
+        self.metric_fns, loss_fn=self.loss_fn, device=self.device)
+    return state
+
+  # -- loops ---------------------------------------------------------------
+
+  def _run_eval(self, state: state_lib.TrainState) -> Dict[str, float]:
+    """One pass over the validation stream (at most ``validation_steps``
+    batches). Every batch passes its real row count as ``num_valid_rows``;
+    on one card no batch is padded. The streamed loss is ``val_loss``."""
+    states = steps.init_metric_states(self.metric_fns, with_loss=True,
+                                      device=self.device)
+    feed = dataset.prefetch_to_device(self.dataset_builder.valid_batches(),
+                                      self.device, flat_examples=True)
+    for n, batch in enumerate(feed, start=1):
+      states, _ = self._eval_step(state.model, batch, states,
+                                  num_valid_rows=batch.batch_size)
+      if n >= self.hparams.validation_steps:
+        break
+    results = steps.metric_results(states)
+    values = torch.stack([v.to(torch.float32) for v in results.values()])
+    out = dict(zip(results, values.cpu().tolist()))
+    out['val_loss'] = out.pop('loss')
+    return out
+
+  def _dispatches(self, batches: Iterator[RankingBatch], step: int,
+                  total_steps: int, spe: int) -> Iterator[RankingBatch]:
+    """The host side of each dispatch the loop will make from ``step``: one
+    flat batch, or with ``spe`` > 1 the next chunk of flat batches stacked
+    (in page-locked memory on CUDA) on a leading steps axis; a chunk ends
+    at an epoch's end."""
+    per_epoch = self.hparams.steps_per_epoch
+    pin = self.device.type == 'cuda'
+    while step < total_steps:
+      epoch_end = min(total_steps, (step // per_epoch + 1) * per_epoch)
+      chunk = min(spe, epoch_end - step)
+      flat = [dataset.flatten_examples(next(batches)) for _ in range(chunk)]
+      yield (stack_numpy_batches(flat, pin_memory=pin) if spe > 1
+             else flat[0])
+      step += chunk
+
+  def _resumed_stream(self, raw_iter, first, step: int):
+    """The train stream, fast-forwarded by ``step`` batches (pulled and
+    dropped) when resuming with ``resume_dataset``."""
+    base_iter = itertools.chain([first], raw_iter)
+    if not (self.hparams.resume_dataset and step > 0):
+      return base_iter
+    if (hasattr(self.dataset_builder, 'seed')
+        and self.dataset_builder.seed is None):
+      raise ValueError(
+          'resume_dataset=True requires a seeded dataset builder '
+          '(seed=None re-shuffles differently on every construction, '
+          'so the fast-forwarded stream would not match the '
+          'interrupted run); pass an explicit seed to the builder')
+    for _ in range(step):
+      next(base_iter)
+    return base_iter
+
+  def train_and_validate(self, verbose: bool = False) -> Dict[str, float]:
+    hp = self.hparams
+    raw_iter = iter(self.dataset_builder.train_batches())
+    first = next(raw_iter)  # the state's sparse features come from data
+    state = self._build(first)
+    spe = max(1, int(hp.steps_per_execution))
+    start_step = int(state.step)
+    step = start_step
+    total_steps = hp.num_epochs * hp.steps_per_epoch
+    feed = dataset.prefetch_to_device(
+        self._dispatches(self._resumed_stream(raw_iter, first, start_step),
+                         step, total_steps, spe), self.device)
+
+    best = -math.inf if hp.best_exporter_metric_higher_better else math.inf
+    patience_left = hp.early_stopping_patience
+    # ReduceLROnPlateau (keras defaults: factor 0.1, patience 10, min_delta
+    # 0.01 * lr; keras/pipeline.py:512-517) on the validation loss.
+    plateau_best = math.inf
+    plateau_wait = 0
+    history: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    lists_seen = 0
+    while step < total_steps:
+      epoch_index = step // hp.steps_per_epoch + 1
+      epoch_end = min(total_steps, epoch_index * hp.steps_per_epoch)
+      profiler = None
+      if hp.profile_dir is not None and epoch_index == hp.profile_epoch:
+        profiler = _start_profiler(self.device)
+      losses = []  # on the device; read once an epoch
+      while step < epoch_end:
+        batch = next(feed)
+        if spe > 1:
+          state, metrics = self._multi_step(state, batch, state.generator)
+          chunk = batch.mask.shape[0]
+          lists_seen += chunk * batch.mask.shape[1]
+        else:
+          state, metrics = self._train_step(state, batch, state.generator)
+          chunk = 1
+          lists_seen += batch.batch_size
+        losses.append(metrics['loss'].reshape(-1))
+        step += chunk
+      if profiler is not None:
+        _stop_profiler(profiler, self.device, hp.profile_dir, epoch_index)
+      epoch_metrics = self._run_eval(state)
+      epoch_metrics['loss'] = torch.cat(losses).to(torch.float32).mean(
+          ).item()
+      dt = time.perf_counter() - t0
+      epoch_metrics['examples_per_sec'] = lists_seen / dt if dt else 0.0
+      checkpoint.write_metrics_log(hp.model_dir, step, epoch_metrics)
+      self._tb.scalars(step, epoch_metrics)
+      self._tb.flush()
+      self.ckpt.save(state, metrics=epoch_metrics)
+      history = epoch_metrics
+      if verbose:
+        print(f'step {step}: ' + ', '.join(
+            f'{k}={v:.4f}' for k, v in epoch_metrics.items()))
+
+      if hp.automatic_reduce_lr:
+        if epoch_metrics['val_loss'] < plateau_best - 0.01 * hp.learning_rate:
+          plateau_best = epoch_metrics['val_loss']
+          plateau_wait = 0
+        else:
+          plateau_wait += 1
+          if plateau_wait >= 10:
+            plateau_wait = 0
+            state.optimizer.lr.mul_(0.1)  # in place: the graph reads it
+
+      # EarlyStopping / best tracking on the validation stream; a missing
+      # metric name is an error, never a silent fallback.
+      if self._monitor not in epoch_metrics:
+        raise ValueError(
+            f'best_exporter_metric {hp.best_exporter_metric!r} is not among '
+            f'the computed validation metrics: {sorted(epoch_metrics)}')
+      current = epoch_metrics[self._monitor]
+      improved = (current > best + hp.early_stopping_min_delta
+                  if hp.best_exporter_metric_higher_better
+                  else current < best - hp.early_stopping_min_delta)
+      if improved:
+        best = current
+        patience_left = hp.early_stopping_patience
+      elif hp.early_stopping_patience:
+        patience_left -= 1
+        if patience_left <= 0:
+          break
+
+    self._tb.close()
+    # Export latest, and (the reference's latest_model /
+    # best_model_by_metric pair, keras/pipeline.py:634-650) the best-by-
+    # metric weights, which under early stopping are not the final ones.
+    checkpoint.export_params(state,
+                             os.path.join(hp.model_dir, 'export', 'latest'))
+    if hp.export_best_model:
+      checkpoint.export_params(self.ckpt.restore_best(state),
+                               os.path.join(hp.model_dir, 'export', 'best'))
+    self.final_state = state
+    return history
+
+
+def _start_profiler(device: torch.device):
+  from torch.profiler import ProfilerActivity, profile
+  activities = [ProfilerActivity.CPU]
+  if device.type == 'cuda':
+    activities.append(ProfilerActivity.CUDA)
+  prof = profile(activities=activities)
+  prof.start()
+  return prof
+
+
+def _stop_profiler(prof, device: torch.device, directory: str,
+                   epoch: int) -> None:
+  """Ends the epoch's trace and writes it as a Chrome trace."""
+  if device.type == 'cuda':
+    torch.cuda.synchronize(device)
+  prof.stop()
+  os.makedirs(directory, exist_ok=True)
+  prof.export_chrome_trace(os.path.join(directory,
+                                        f'trace_epoch{epoch}.json'))
+
+
+class RankingPipeline(SimplePipeline):
+  """Estimator-era API alias (extension/pipeline.py:32): same object,
+  ``train_and_eval`` naming."""
+
+  def train_and_eval(self, verbose: bool = False):
+    return self.train_and_validate(verbose=verbose)

@@ -17,10 +17,13 @@ host.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+import itertools
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 
+from ranking_tpu_torch.data import batch as batch_lib
 from ranking_tpu_torch.data.batch import RankingBatch
 from ranking_tpu_torch.models import embeddings as emb_lib
 from ranking_tpu_torch.ops.metric_registry import MeanState
@@ -276,36 +279,204 @@ def make_sparse_train_step(
 
 def stack_batches(batches: List[RankingBatch]) -> RankingBatch:
   """K batches of one shape as one batch with a leading steps axis."""
-  def stack(items):
-    return torch.stack(list(items))
-  first = batches[0]
+  return batch_lib.stack_numpy_batches(batches)
+
+
+def _step_batch(stacked: RankingBatch, k: int) -> RankingBatch:
   return RankingBatch(
-      context={k: stack(b.context[k] for b in batches) for k in first.context},
-      examples={k: stack(b.examples[k] for b in batches)
-                for k in first.examples},
-      labels=stack(b.labels for b in batches),
-      mask=stack(b.mask for b in batches))
+      context={n: v[k] for n, v in stacked.context.items()},
+      examples={n: v[k] for n, v in stacked.examples.items()},
+      labels=({n: v[k] for n, v in stacked.labels.items()}
+              if isinstance(stacked.labels, dict) else stacked.labels[k]),
+      mask=stacked.mask[k])
+
+
+def _leaves(batch: RankingBatch) -> List[Tensor]:
+  labels = ([batch.labels[k] for k in sorted(batch.labels)]
+            if isinstance(batch.labels, dict) else [batch.labels])
+  return ([batch.context[k] for k in sorted(batch.context)]
+          + [batch.examples[k] for k in sorted(batch.examples)]
+          + labels + [batch.mask])
+
+
+def _signature(batch: RankingBatch) -> tuple:
+  """What a captured step depends on in a batch: names, shapes, dtypes."""
+  return (tuple(sorted(batch.context)), tuple(sorted(batch.examples)),
+          tuple(sorted(batch.labels)) if isinstance(batch.labels, dict)
+          else None,
+          tuple((tuple(t.shape), t.dtype) for t in _leaves(batch)))
+
+
+def _tensors(tree) -> Iterator[Tensor]:
+  if torch.is_tensor(tree):
+    yield tree
+  elif isinstance(tree, Mapping):
+    for value in tree.values():
+      yield from _tensors(value)
+  elif isinstance(tree, (list, tuple)):
+    for value in tree:
+      yield from _tensors(value)
+
+
+def state_addresses(state: TrainState) -> Tuple[int, ...]:
+  """The addresses of every tensor of ``state`` that a train step reads or
+  writes, in a fixed order: the model's parameters and buffers, the dense
+  optimizer's state (moments, step tensors), its rate and count, and the
+  lazy-row optimizer's state. A captured step is bound to them."""
+  opt = state.optimizer
+  extra = [getattr(opt, 'count', None)] + [g['lr'] for g in opt.param_groups]
+  tensors = itertools.chain(state.model.parameters(), state.model.buffers(),
+                            _tensors(list(opt.state.values())),
+                            _tensors(extra),
+                            _tensors(state.sparse_opt_state))
+  return tuple(t.data_ptr() for t in tensors)
+
+
+def kernel_launch_counts() -> Dict[str, int]:
+  """The launch count of every kernel wrapper of the port, by name."""
+  from ranking_tpu_torch.ops.cuda import fused_bn, pairwise, rows
+  from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+  wrappers = ((cuda_sort.sorted_values_and_ranks,) + fused_bn.KERNEL_WRAPPERS
+              + pairwise.KERNEL_WRAPPERS + rows.KERNEL_WRAPPERS)
+  return {fn.__name__: fn.launches for fn in wrappers}
+
+
+class GraphedSteps:
+  """K train steps per call on CUDA: one step captured in a CUDA graph.
+
+  The first ``warmup`` steps that reach it run eagerly on a side stream
+  (they build the kernels, the optimizer's state and the allocator's
+  blocks, as capture requires); the next step is captured, reading static
+  copies of its batch, and replayed, and so is every later one: before
+  replay k the batch of step k is copied into the static buffers. The
+  captured call leaves no work behind (capture records, it does not run),
+  so every step of a call is either an eager warm-up step or one replay.
+  The graph is bound to the addresses of the tensors it read and wrote:
+  another state or generator object, a change of the batch's names, shapes
+  or dtypes, or a state tensor that now lives elsewhere (a restored
+  optimizer's new moments, a replaced parameter; ``state_addresses``)
+  warms up and captures anew. A generator that the step reads is
+  registered with the graph, so that each replay draws new numbers from it.
+
+  The kernel wrappers count their launches where they run, and in a graph
+  that is once, at capture: ``captured_launches`` holds what the capture
+  recorded (name -> count), and ``replays`` how often the graph ran, so
+  that launches on the card = eager counts + captured x replays.
+
+  Metrics come back as ``[K]`` float32 tensors on the device, cloned out of
+  the graph's static outputs; nothing in a call synchronizes with the host.
+  ``state.step`` advances by K. A failed capture raises.
+  """
+
+  warmup = 3  # eager steps before the capture
+
+  def __init__(self, train_step: Callable[..., Tuple[TrainState,
+                                                     Dict[str, Tensor]]]):
+    self.train_step = train_step
+    self.graph = None
+    self.captures = 0
+    self.replays = 0
+    self.captured_launches: Dict[str, int] = {}
+    # The state and generator the warm-up or the graph belongs to, held so
+    # that their ids and addresses are not reused while it lives.
+    self._state = self._generator = None
+    self._key = None
+    self._eager = 0
+    self._names: Optional[List[str]] = None
+
+  def _eager_step(self, state, batch, generator):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+      state, metrics = self.train_step(state, batch, generator)
+      self._names = list(metrics)
+      row = torch.stack([metrics[n].to(torch.float32) for n in self._names])
+    torch.cuda.current_stream().wait_stream(side)
+    self._eager += 1
+    return state, row
+
+  def _capture(self, state, batch, generator):
+    self._static_batch = RankingBatch(
+        context={n: v.clone() for n, v in batch.context.items()},
+        examples={n: v.clone() for n, v in batch.examples.items()},
+        labels=({n: v.clone() for n, v in batch.labels.items()}
+                if isinstance(batch.labels, dict) else batch.labels.clone()),
+        mask=batch.mask.clone())
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+      graph.register_generator_state(generator)
+    before = kernel_launch_counts()
+    step = state.step
+    try:
+      with torch.cuda.graph(graph):
+        _, metrics = self.train_step(state, self._static_batch, generator)
+        self._static_metrics = torch.stack(
+            [metrics[n].to(torch.float32) for n in self._names])
+    except Exception as e:
+      raise RuntimeError(
+          f'capturing the train step in a CUDA graph failed: {e}') from e
+    state.step = step  # the captured call recorded a step, it ran none
+    after = kernel_launch_counts()
+    self.captured_launches = {n: after[n] - before[n] for n in after
+                              if after[n] != before[n]}
+    self.graph = graph
+    self.captures += 1
+
+  def __call__(self, state: TrainState, stacked_batch: RankingBatch,
+               generator: Optional[torch.Generator] = None):
+    num_steps = stacked_batch.mask.shape[0]
+    signature = _signature(_step_batch(stacked_batch, 0))
+    if (state is not self._state or generator is not self._generator
+        or (signature, state_addresses(state)) != self._key):
+      self.graph, self._eager = None, 0
+      self._state, self._generator = state, generator
+    rows = []
+    for k in range(num_steps):
+      batch = _step_batch(stacked_batch, k)
+      if self.graph is None and self._eager < self.warmup:
+        state, row = self._eager_step(state, batch, generator)
+        rows.append(row)
+        continue
+      if self.graph is None:
+        self._capture(state, batch, generator)
+      for dst, src in zip(_leaves(self._static_batch), _leaves(batch)):
+        dst.copy_(src)
+      self.graph.replay()
+      self.replays += 1
+      state.step += 1
+      rows.append(self._static_metrics.clone())
+    # After the call: the warm-up steps create the optimizer's state.
+    self._key = (signature, state_addresses(state))
+    columns = torch.stack(rows, dim=1)
+    return state, {n: columns[i] for i, n in enumerate(self._names)}
 
 
 def make_multi_step(
     train_step: Callable[..., Tuple[TrainState, Dict[str, Tensor]]],
+    device: DeviceLike = 'cuda',
+    eager: bool = False,
 ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
   """Wraps a train_step to run K steps per call.
 
-  The batch argument has a leading steps axis on every leaf
-  (``stack_batches``); the returned metrics are per-step ``[K]`` tensors.
-  The steps run as a Python loop, one after another.
+  The port of the JAX package's ``make_multi_step`` (K steps in one
+  ``lax.scan`` dispatch, the reference's ``steps_per_execution``). The batch
+  argument has a leading steps axis on every leaf (``stack_batches``); the
+  returned metrics are per-step ``[K]`` tensors.
+
+  On CUDA the steps are replays of one captured step (``GraphedSteps``).
+  ``eager=True`` runs them as a Python loop of eager steps instead, as the
+  CPU does; it exists as the yardstick of the graph.
   """
+  device = resolve_device(device)
+  if device.type == 'cuda' and not eager:
+    return GraphedSteps(train_step)
 
   def multi_step(state: TrainState, stacked_batch: RankingBatch,
                  generator: Optional[torch.Generator] = None):
     per_step = []
     for k in range(stacked_batch.mask.shape[0]):
-      batch = RankingBatch(
-          context={n: v[k] for n, v in stacked_batch.context.items()},
-          examples={n: v[k] for n, v in stacked_batch.examples.items()},
-          labels=stacked_batch.labels[k], mask=stacked_batch.mask[k])
-      state, metrics = train_step(state, batch, generator)
+      state, metrics = train_step(state, _step_batch(stacked_batch, k),
+                                  generator)
       per_step.append(metrics)
     return state, {name: torch.stack([m[name] for m in per_step])
                    for name in per_step[0]}

@@ -7,7 +7,10 @@ import sys
 import pytest
 import torch
 
+from ranking_tpu_torch.data import dataset
 from ranking_tpu_torch.models import scorers
+from ranking_tpu_torch.pipeline import hparams as hparams_lib
+from ranking_tpu_torch.pipeline import pipeline
 from ranking_tpu_torch.pipeline import serving
 from ranking_tpu_torch.train import sparse
 from ranking_tpu_torch.train import state as state_lib
@@ -19,7 +22,10 @@ import ranking_tpu_torch
 for mod in pkgutil.walk_packages(ranking_tpu_torch.__path__,
                                  'ranking_tpu_torch.'):
   importlib.import_module(mod.name)
-import ranking_tpu_torch.pipeline.serving
+for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
+             'data.native', 'data.libsvm', 'data.tfrecord',
+             'utils.tensorboard'):
+  assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')
              or m == 'ranking_tpu' or m.startswith('ranking_tpu.'))
@@ -57,7 +63,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
   with pytest.raises(RuntimeError, match="device='cpu'"):
     state_lib.create_train_state(embedding_model,
                                  sparse_tx=sparse.LazyAdam())
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    steps.make_multi_step(lambda *a, **k: None)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    dataset.prefetch_to_device([])
+  hparams = hparams_lib.PipelineHparams(
+      model_dir='unused', num_epochs=1, steps_per_epoch=1,
+      validation_steps=1, learning_rate=0.1, loss='softmax_loss')
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    pipeline.SimplePipeline(model, None, hparams)
   serving.Predictor(model, device='cpu')  # the CPU when asked
+  steps.make_multi_step(lambda *a, **k: None, device='cpu')
+  pipeline.SimplePipeline(model, None, hparams, device='cpu')
   state_lib.create_train_state(model, device='cpu')
   steps.make_train_step(lambda *a, **k: None, device='cpu')
   steps.make_sparse_train_step(lambda *a, **k: None, (), device='cpu')

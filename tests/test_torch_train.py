@@ -19,6 +19,7 @@ An eps above the noise keeps the comparison about the arithmetic. That the
 port's Adam equals ``optax.adam`` at the default eps is its own test.
 """
 
+import copy
 import os
 
 import jax
@@ -212,14 +213,41 @@ def test_multi_step_equals_single_steps():
   single = fresh()
   want = [step(single, b)[1] for b in batches]
   multi = fresh()
-  multi, got = steps.make_multi_step(step)(multi,
-                                           steps.stack_batches(batches))
+  multi, got = steps.make_multi_step(step, device='cpu')(
+      multi, steps.stack_batches(batches))
   assert multi.step == 3 and got['loss'].shape == (3,)
   for name in got:
     torch.testing.assert_close(got[name], torch.stack([m[name]
                                                        for m in want]))
   for a, b in zip(single.model.parameters(), multi.model.parameters()):
     torch.testing.assert_close(a, b)
+
+
+def test_state_addresses_see_what_a_captured_step_is_bound_to():
+  """A captured step is bound to the addresses of the state's tensors:
+  in-place steps keep them, and a created or restored optimizer state, a
+  replaced parameter or buffer or a new rate tensor changes them."""
+  (x, labels, mask), = _batches(1, seed=4)
+  batch = dataset.flatten_examples(batch_lib.batch_from_labels(
+      labels, examples={'x': x}, mask=mask))
+  model = scorers.RankingModel(scorers.DNNScorer(
+      HIDDEN, in_features=F, dropout=0.0,
+      generator=torch.Generator().manual_seed(0)))
+  state = state_lib.create_train_state(model, device='cpu')
+  step = steps.make_train_step(loss_registry.make_loss_fn('softmax_loss'),
+                               device='cpu')
+  fresh = steps.state_addresses(state)
+  step(state, batch)  # creates Adam's moments
+  after_one = steps.state_addresses(state)
+  assert after_one != fresh
+  step(state, batch)
+  assert steps.state_addresses(state) == after_one
+  # A restored checkpoint brings new moment tensors.
+  state.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+  restored = steps.state_addresses(state)
+  assert restored != after_one and len(restored) == len(after_one)
+  state.model.scorer.tower.bn[0].running_mean = torch.zeros(HIDDEN[0])
+  assert steps.state_addresses(state) != restored
 
 
 def test_total_loss_over_tasks():
