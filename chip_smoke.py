@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's serving, eval, training and sparse embedding
-training paths, its K-step dispatch and its training pipeline on one CUDA
-card.
+training paths, its K-step dispatch, its training pipeline and its ELWC
+path (serialized protos through the native loader, and serving requests)
+on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -146,15 +147,36 @@ Phases (any failure exits non-zero before the last line is printed):
    dispatches that only replay, per epoch window and over the dispatches
    alone) beside the whole first run's, the eval's ms and the parser's
    MB/s;
-18. with ``--profile`` only: every kernel's registers and spills from
+18. the ELWC path: ELWC TFRecords of the flagship shape written from the
+   seed with the port's encoder (1,280 train lists in 4 files, 256
+   validation lists); the native decoder held bit for bit against the
+   plain parser (``data/proto.py``) on 64 records, their list sizes, 64
+   tf.Examples and 64 token records hashed and through a vocabulary, and
+   against the arrays the writer drew; the loader's own lists/s (no
+   device) decoding, building and reading the epoch cache;
+   ``SimplePipeline.train_and_validate`` over ``SimpleDatasetBuilder``
+   (``engine='native_loader'``) on the flagship recipe at K = 10: run D, one
+   epoch of 50 steps with the epoch cache off (every batch decoded), and
+   run C, 2 epochs with the cache on, each timed as in phase 17; run C
+   resumed to 3 epochs through the builder's ``skip_batches`` under
+   ``torch.profiler`` (one capture, rows 1-4 on the card as their wrappers
+   recorded, finite metrics, every output); ``Predictor.from_export`` of
+   the export: ``predict`` on 128 ELWCs of 20-200 documents -> [128, 256]
+   equal to ``score_batch`` within phase 4's tolerance, ``regress`` on 128
+   tf.Examples equal to ``predict`` on the same documents as lists of one,
+   and the parse ms and device ms of a B=128 request; and phase 13's
+   sparse workload fed as ELWC of hashed string tokens through the same
+   builder, 20 steps with ``lazy_adam`` at K = 10, row 10 counted on the
+   card;
+19. with ``--profile`` only: every kernel's registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
    busiest kernels of one eval step, one B=128 serve request and one train
    step of each loss and of the sparse step.
 
 Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
-line (each kernel also with its launches in phase 17, as its wrapper counts
-them and on the card in the resumed run, and per replay of phase 16's
-graphs), and last ``{"ok": true, "device": {...}}``.
+line (each kernel also with its launches in phases 17 and 18, as its
+wrapper counts them and on the card in the profiled runs, and per replay
+of phase 16's graphs), and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -2267,6 +2289,34 @@ def _steady_state(spans, steps_per_epoch):
           'dispatch_lists_per_s': lists / sum(dispatch_ms) * 1e3}
 
 
+def _card_launches(what, before, between, after, multi_step,
+                   device_counts):
+  """Each wrapper's own kernel on the card in a profiled run (the counts
+  from ``between`` to ``after``, ``device_counts`` its device events)
+  against what the wrappers recorded in it: their eager calls, and what
+  ``multi_step``'s capture recorded times its replays. Returns (wrapper
+  launches from ``before`` to ``after``, each wrapper's kernel launches on
+  the card in the profiled run)."""
+  wrappers = {n: after[n] - before[n] for n in after}
+  measured = {}
+  for name, kernel in _ENTRY_KERNEL.items():
+    recorded = after[name] - between[name]
+    expected = recorded + multi_step.captured_launches.get(name, 0) * (
+        multi_step.replays - 1)
+    sharing = [n for n, k in _ENTRY_KERNEL.items()
+               if k == kernel and n != name and wrappers[n]]
+    got = device_counts.get(kernel, 0) if wrappers[name] else 0
+    if wrappers[name] and sharing:
+      _fail(f'{what}: {name} and {sharing} both ran; {kernel} cannot be '
+            'told apart')
+    if got != expected:
+      _fail(f'{what}: {kernel} ran {got} times in the profiled run; the '
+            f'wrapper {name} recorded {recorded} calls and its graph '
+            f'replayed {multi_step.replays} times: {expected}')
+    measured[name] = got
+  return wrappers, measured
+
+
 def _pipeline_phase(gen):
   """Phase 17: ``SimplePipeline.train_and_validate`` over LIBSVM files on
   the card: 2 epochs, timed (steady-state lists/s from CUDA events around
@@ -2360,26 +2410,8 @@ def _pipeline_phase(gen):
     steady_replays = sum(n for _, n, _, _ in timed[0].spans) // B
     if steady_replays != PIPE_EPOCHS * steps_per_epoch - KSTEPS:
       _fail(f'pipeline: {steady_replays} steps in replay-only dispatches')
-    # Each wrapper's own kernel on the card in the resumed run, against
-    # what the wrappers recorded: their eager calls, and what the capture
-    # recorded times the replays.
-    wrappers = {n: after[n] - before[n] for n in after}
-    measured = {}
-    for name, kernel in _ENTRY_KERNEL.items():
-      recorded = after[name] - between[name]
-      expected = recorded + resumed._multi_step.captured_launches.get(
-          name, 0) * (resumed._multi_step.replays - 1)
-      sharing = [n for n, k in _ENTRY_KERNEL.items()
-                 if k == kernel and n != name and wrappers[n]]
-      got = device_counts.get(kernel, 0) if wrappers[name] else 0
-      if wrappers[name] and sharing:
-        _fail(f'pipeline: {name} and {sharing} both ran; {kernel} cannot '
-              'be told apart')
-      if got != expected:
-        _fail(f'pipeline: {kernel} ran {got} times in the resumed run; '
-              f'the wrapper {name} recorded {recorded} calls and its graph '
-              f'replayed {resumed._multi_step.replays} times: {expected}')
-      measured[name] = got
+    wrappers, measured = _card_launches('pipeline', before, between, after,
+                                        resumed._multi_step, device_counts)
     state = resumed.final_state
     if state.step != PIPE_RESUMED_EPOCHS * steps_per_epoch:
       _fail(f'pipeline: resumed to step {state.step}')
@@ -2438,6 +2470,506 @@ def _pipeline_phase(gen):
          f'card in the resumed run {device_counts}; exported params reload '
          'and score equal')
     return out, wrappers, measured
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase 18: the ELWC path: serialized protos, the loader, serving --------
+
+# The flagship recipe written as ELWC, the shape of the repo's corpus
+# writer (benchmarks/e2e_common.py:157-171): documents of 136 float
+# features and an int64 relevance 0-4, no context, 20 to 200 documents a
+# list; 1,280 train lists in 4 files and 256 validation lists, the cut of
+# scale of phase 17.
+ELWC_TRAIN_FILES = 4
+ELWC_PROBE = 64                   # records held decoder against plain
+# The sparse token run: phase 13's workload fed as ELWC of string tokens
+# hashed into the 3M rows; 20 steps, 10 a dispatch.
+TOKEN_LISTS, TOKEN_STEPS = 640, 20
+LOADER_PASSES = 7                 # timed passes of each loader rate
+
+
+def _parsed_equal(a, b):
+  """ParsedLists equal bit for bit, dtypes included."""
+  import numpy as np
+  if sorted(a.context) != sorted(b.context) or sorted(a.examples) != sorted(
+      b.examples):
+    return False
+  pairs = [(a.context[k], b.context[k]) for k in a.context] + [
+      (a.examples[k], b.examples[k]) for k in a.examples] + [
+          (a.sizes, b.sizes), (a.mask, b.mask)]
+  return all(x.dtype == y.dtype and x.shape == y.shape and np.array_equal(
+      x.view(np.uint32) if x.dtype == np.float32 else x,
+      y.view(np.uint32) if y.dtype == np.float32 else y) for x, y in pairs)
+
+
+def _elwc_specs():
+  from ranking_tpu_torch.data import parsers
+  return {}, {'float_features': parsers.FixedLenFeature((F,), 'float32', 0.0),
+              'relevance': parsers.FixedLenFeature((), 'int64', 0)}
+
+
+def _token_specs(vocab=None):
+  from ranking_tpu_torch.data import parsers
+  tokens = (parsers.VarLenFeature('string', max_len=SPARSE_T, vocab=vocab)
+            if vocab is not None else parsers.VarLenFeature(
+                'string', max_len=SPARSE_T, hash_buckets=SPARSE_VOCAB))
+  return ({'query_tokens': tokens},
+          {'document_tokens': tokens,
+           'relevance': parsers.FixedLenFeature((), 'int64', 0)})
+
+
+def _token_records(seed, lists):
+  """ELWC lists of 20 to 50 documents, each 1 to 8 string tokens drawn from
+  10M words (hashed into the 3M rows), a query of 1 to 8, labels 0-4."""
+  import numpy as np
+  from ranking_tpu_torch.data import proto
+  rng = np.random.RandomState(seed)
+
+  def words():
+    return [f'w{i}' for i in rng.randint(0, 10_000_000,
+                                         size=rng.randint(1, SPARSE_T + 1))]
+
+  return [proto.make_elwc({'query_tokens': words()}, [
+      {'document_tokens': words(), 'relevance': [int(rng.randint(0, 5))]}
+      for _ in range(rng.randint(SPARSE_MIN_LEN, SPARSE_L + 1))])
+      for _ in range(lists)]
+
+
+def _check_decoder(train_path, drawn):
+  """Step 2: the native decoder against the plain parser on the card's
+  host, bit for bit: 64 records of a train file, their list sizes, 64
+  pointwise tf.Examples, and 64 token records under hashing and under a
+  vocabulary; and the decoded arrays against what the writer drew."""
+  import numpy as np
+  from ranking_tpu_torch.data import native
+  from ranking_tpu_torch.data import parsers
+  from ranking_tpu_torch.data import proto
+  from ranking_tpu_torch.data import tfrecord
+  records = tfrecord.read_all_records(train_path, verify=True,
+                                      limit=ELWC_PROBE)
+  if native.read_tfrecord_payloads(train_path)[:ELWC_PROBE] != records:
+    _fail('elwc: the native TFRecord scan read other payloads')
+  context, example = _elwc_specs()
+  x, labels, counts = drawn
+  fast = parsers.parse(records, context, example, L)
+  plain = parsers.parse(records, context, example, L, use_native=False)
+  if not _parsed_equal(fast, plain):
+    _fail('elwc: native decode != plain parser on the train records')
+  if not np.array_equal(parsers.elwc_list_sizes(records),
+                        parsers._elwc_list_sizes_py(records)):
+    _fail('elwc: native list sizes != the plain walk')
+  start = 0
+  for i in range(ELWC_PROBE):
+    n = counts[i]
+    if (fast.sizes[i] != n
+        or not np.array_equal(fast.examples['float_features'][i, :n],
+                              x[start:start + n])
+        or not np.array_equal(fast.examples['relevance'][i, :n],
+                              labels[start:start + n])
+        or fast.examples['float_features'][i, n:].any()):
+      _fail(f'elwc: record {i} decodes to other values than were written')
+    start += n
+  pointwise = [proto.make_example({'float_features': x[d],
+                                   'relevance': labels[d:d + 1]})
+               for d in range(ELWC_PROBE)]
+  if not _parsed_equal(
+      parsers.parse(pointwise, context, example, 1, data_format='tf_example'),
+      parsers.parse(pointwise, context, example, 1, data_format='tf_example',
+                    use_native=False)):
+    _fail('elwc: native decode != plain parser on tf.Examples')
+  tokens = _token_records(SEED + 30, ELWC_PROBE)
+  vocab = parsers.Vocabulary([f'w{i}' for i in range(0, 10_000_000, 997)],
+                             num_oov_buckets=5)
+  for name, specs in (('hashed', _token_specs()),
+                      ('vocabulary', _token_specs(vocab))):
+    if not _parsed_equal(parsers.parse(tokens, *specs, SPARSE_L),
+                         parsers.parse(tokens, *specs, SPARSE_L,
+                                       use_native=False)):
+      _fail(f'elwc: native decode != plain parser on {name} tokens')
+  _log(f'elwc: native decoder == plain parser bit for bit on {ELWC_PROBE} '
+       f'train records (list sizes too), {ELWC_PROBE} tf.Examples and '
+       f'{ELWC_PROBE} token records hashed and through a vocabulary; the '
+       'decoded arrays are what the writer drew')
+
+
+def _loader_rates(pattern, cache_dir):
+  """lists/s of the native loader alone (no device), each over
+  LOADER_PASSES passes of the train files: decoding with the cache off and
+  reading a complete cache (each after a pass of warm-up), and building
+  the cache (a fresh spill each pass, its scan included). Returns each
+  rate's median, least and most, and the loader's decode threads; fails
+  unless each stream's cache state is the one it measures."""
+  import shutil
+  from ranking_tpu_torch.data import dataset
+  context, example = _elwc_specs()
+  per_pass = PIPE_TRAIN_LISTS // B
+
+  def passes(epochs, cache, state):
+    t0 = time.perf_counter()
+    stream = dataset.native_ranking_dataset(
+        pattern, B, context_feature_spec=context,
+        example_feature_spec=example, list_size=L, epochs=epochs,
+        seed=SEED, cache_dir=cache)
+    if stream.loader.cache_state != state:
+      _fail(f'elwc loader: cache {stream.loader.cache_state}, not {state}')
+    marks = [t0]
+    for i, _ in enumerate(stream, start=1):
+      if i % per_pass == 0:
+        marks.append(time.perf_counter())
+    rates = [per_pass * B / (b - a) for a, b in zip(marks, marks[1:])]
+    return rates, stream.loader.num_threads
+
+  decode, threads = passes(1 + LOADER_PASSES, None, 'off')
+  build = []
+  for _ in range(LOADER_PASSES):
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    build += passes(1, cache_dir, 'build')[0]
+  read, _ = passes(1 + LOADER_PASSES, cache_dir, 'read')
+  return {name: {'median': statistics.median(r), 'min': min(r),
+                 'max': max(r), 'passes': len(r)}
+          for name, r in (('decode', decode[1:]), ('cache_build', build),
+                          ('cache_read', read[1:]))}, threads
+
+
+def _elwc_phase(gen):
+  """Phase 18: the ELWC path on the card. Writes ELWC TFRecords from the
+  seed, holds the native decoder against the plain parser, trains the
+  flagship recipe through ``SimpleDatasetBuilder`` (the native loader)
+  and ``SimplePipeline.train_and_validate`` (run D: one epoch with the
+  epoch cache off, so that every dispatch's batches are decoded; run C: two
+  epochs with the cache on, whose dispatches after the first read it; a
+  resume of C to 3 epochs through the builder's ``skip_batches``, under
+  ``torch.profiler``), serves the export through ``Predictor.predict`` and
+  ``regress``, and runs the sparse token workload through the same
+  builder. Returns (numbers, wrapper launches of the flagship runs, kernel
+  launches on the card in the resume, wrapper launches of the token run,
+  its kernel launches on the card)."""
+  import os
+  import shutil
+  import numpy as np
+  import torch
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.data import native
+  from ranking_tpu_torch.data import parsers
+  from ranking_tpu_torch.data import proto
+  from ranking_tpu_torch.data import tfrecord
+  from ranking_tpu_torch.models import layers
+  from ranking_tpu_torch.pipeline import hparams as hparams_lib
+  from ranking_tpu_torch.pipeline import pipeline as pipeline_lib
+  from ranking_tpu_torch.pipeline import serving
+  from ranking_tpu_torch.train import steps
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      '.scratch', 'chip_smoke_elwc')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  out = {}
+  try:
+    # Step 1: the files.
+    t0 = time.perf_counter()
+    per_file = PIPE_TRAIN_LISTS // ELWC_TRAIN_FILES
+    drawn = [proto.write_random_elwc(
+        os.path.join(root, f'train-{i}.tfrecord'), per_file, F,
+        PIPE_MIN_DOCS, L, seed=SEED + 20 + i)
+        for i in range(ELWC_TRAIN_FILES)]
+    proto.write_random_elwc(os.path.join(root, 'vali.tfrecord'),
+                            PIPE_VALID_LISTS, F, PIPE_MIN_DOCS, L,
+                            seed=SEED + 25)
+    out['write_s'] = time.perf_counter() - t0
+    train_pattern = os.path.join(root, 'train-*.tfrecord')
+    sizes = {name: os.path.getsize(os.path.join(root, name)) / 1e6
+             for name in sorted(os.listdir(root))}
+    out['file_mb'] = {'train': sum(v for k, v in sizes.items()
+                                   if k.startswith('train')),
+                      'vali': sizes['vali.tfrecord']}
+    docs = sum(int(d[2].sum()) for d in drawn)
+    _log(f'elwc: wrote {PIPE_TRAIN_LISTS} train lists in '
+         f'{ELWC_TRAIN_FILES} files ({out["file_mb"]["train"]:.1f} MB, '
+         f'{docs} documents, {out["file_mb"]["train"] * 1e6 / docs:.0f} '
+         f'bytes a document) and {PIPE_VALID_LISTS} validation lists '
+         f'({out["file_mb"]["vali"]:.1f} MB) in {out["write_s"]:.2f} s')
+
+    # Step 2: the native decoder against the plain parser.
+    _check_decoder(os.path.join(root, 'train-0.tfrecord'), drawn[0])
+    out['loader_lists_per_s'], out['loader_threads'] = _loader_rates(
+        train_pattern, os.path.join(root, 'loader_cache'))
+    out['host_cpus'] = os.cpu_count()
+    _log(f'elwc: the loader alone (no device), lists/s over '
+         f'{LOADER_PASSES} passes of {PIPE_TRAIN_LISTS} lists, median '
+         f'(least-most): ' + ', '.join(
+             f'{k} {v["median"]:.0f} ({v["min"]:.0f}-{v["max"]:.0f})'
+             for k, v in out['loader_lists_per_s'].items())
+         + f'; {out["loader_threads"]} decode threads on '
+         f'{out["host_cpus"]} host CPUs')
+
+    # Step 3: the flagship recipe through the builder and the pipeline.
+    context, example = _elwc_specs()
+
+    def builder(cache):
+      return pipeline_lib.SimpleDatasetBuilder(
+          context, example, hparams_lib.DatasetHparams(
+              train_input_pattern=train_pattern,
+              valid_input_pattern=os.path.join(root, 'vali.tfrecord'),
+              train_batch_size=B, valid_batch_size=B, list_size=L,
+              dataset_engine='native_loader', dataset_cache=cache),
+          seed=SEED)
+
+    def hparams(model_dir, epochs):
+      return hparams_lib.PipelineHparams(
+          model_dir=os.path.join(root, model_dir), num_epochs=epochs,
+          steps_per_epoch=PIPE_STEPS_PER_EPOCH, validation_steps=10 ** 6,
+          learning_rate=1e-3, loss='softmax_loss',
+          steps_per_execution=KSTEPS, resume_dataset=True)
+
+    timed = []
+    make_multi_step = steps.make_multi_step
+
+    def make_timed(*args, **kwargs):
+      timed.append(_TimedDispatches(make_multi_step(*args, **kwargs)))
+      return timed[-1]
+
+    runs, steady = {}, {}
+    cache_dir = os.path.join(root, 'cache')
+    _reset_all_launches()
+    before = steps.kernel_launch_counts()
+    for name, cache, epochs in (('decode', None, 1),
+                                ('cache', cache_dir, PIPE_EPOCHS)):
+      pipe = pipeline_lib.SimplePipeline(
+          _train_model(gen), builder(cache), hparams(f'model_{name}', epochs),
+          device='cuda')
+      t0 = time.perf_counter()
+      with mock.patch.object(steps, 'make_multi_step', make_timed):
+        history = pipe.train_and_validate()
+      out[f'{name}_run_s'] = time.perf_counter() - t0
+      if pipe._multi_step is not timed[-1]:
+        _fail('elwc: the timed K-step dispatch was not the one that ran')
+      if pipe.dataset_builder.engine != {'train': 'native_loader',
+                                         'valid': 'native_loader'}:
+        _fail(f'elwc: engines {pipe.dataset_builder.engine}')
+      # Run D decodes every batch; run C builds the train cache, and its
+      # second epoch's validation reads the cache the first one built.
+      caches = {k: v['cache'] for k, v in pipe.dataset_builder.loader.items()}
+      want = ({'train': 'off', 'valid': 'off'} if cache is None
+              else {'train': 'build', 'valid': 'read'})
+      if caches != want:
+        _fail(f'elwc {name} run: loader caches {caches}, not {want}')
+      run = pipe._multi_step
+      if (run.captures != 1
+          or run.replays != epochs * PIPE_STEPS_PER_EPOCH - run.warmup):
+        _fail(f'elwc {name} run: {run.captures} captures, {run.replays} '
+              f'replays in {epochs} epochs')
+      if not all(math.isfinite(v) for v in history.values()):
+        _fail(f'elwc {name} run: a metric is not finite: {history}')
+      runs[name] = (pipe, history)
+      steady[name] = _steady_state(timed[-1].spans, PIPE_STEPS_PER_EPOCH)
+    out['pipeline_loader'] = {
+        name: dict(pipe.dataset_builder.loader)
+        for name, (pipe, _) in runs.items()}
+
+    # Step 4: resume run C to 3 epochs, fast-forwarded by skip_batches.
+    skips = []
+    resumed_builder = builder(cache_dir)
+    train_batches = resumed_builder.train_batches
+
+    def recording(skip_batches=0):
+      skips.append(skip_batches)
+      return train_batches(skip_batches)
+
+    resumed_builder.train_batches = recording
+    resumed = pipeline_lib.SimplePipeline(
+        _train_model(gen), resumed_builder,
+        hparams('model_cache', PIPE_RESUMED_EPOCHS), device='cuda')
+    between = steps.kernel_launch_counts()
+    result = {}
+    t0 = time.perf_counter()
+    device_counts = _kernel_counts(
+        lambda: result.update(history=resumed.train_and_validate()))
+    out['resumed_run_s'] = time.perf_counter() - t0
+    after = steps.kernel_launch_counts()
+    resumed_history = result['history']
+    done = PIPE_EPOCHS * PIPE_STEPS_PER_EPOCH
+    if skips != [0, done]:
+      _fail(f'elwc: the resume asked the builder for skip_batches {skips}, '
+            f'not [0, {done}]')
+    run = resumed._multi_step
+    if (run.captures != 1 or resumed.final_state.step
+        != PIPE_RESUMED_EPOCHS * PIPE_STEPS_PER_EPOCH):
+      _fail(f'elwc resume: {run.captures} captures, step '
+            f'{resumed.final_state.step}')
+    if not all(math.isfinite(v) for v in resumed_history.values()):
+      _fail(f'elwc resume: a metric is not finite: {resumed_history}')
+    caches = {k: v['cache']
+              for k, v in resumed.dataset_builder.loader.items()}
+    if caches != {'train': 'read', 'valid': 'read'}:
+      _fail(f'elwc resume: loader caches {caches}, not read')
+    wrappers, measured = _card_launches('elwc', before, between, after, run,
+                                        device_counts)
+    model_dir = os.path.join(root, 'model_cache')
+    with open(os.path.join(model_dir, 'metrics.jsonl')) as f:
+      logged = [json.loads(line)['step'] for line in f]
+    tb_dir = os.path.join(model_dir, 'tensorboard')
+    events = sum(_count_records(os.path.join(tb_dir, name))
+                 for name in os.listdir(tb_dir))
+    latest = os.path.join(model_dir, 'export', 'latest')
+    ckpts = sorted(os.listdir(os.path.join(model_dir, 'checkpoints')))
+    if (logged != [(e + 1) * PIPE_STEPS_PER_EPOCH
+                   for e in range(PIPE_RESUMED_EPOCHS)]
+        or events != 2 + PIPE_RESUMED_EPOCHS
+        or f'ckpt_{resumed.final_state.step}.pt' not in ckpts
+        or not os.path.exists(os.path.join(latest, 'params.pt'))):
+      _fail(f'elwc: outputs missing: steps {logged}, {events} event '
+            f'records, checkpoints {ckpts}')
+    for name in ('decode', 'cache'):
+      windows = ', '.join(f'epoch {w["epoch"]} {w["lists_per_s"]:.1f}'
+                          for w in steady[name]['windows'])
+      _log(f'elwc run {"D" if name == "decode" else "C"} (epoch cache '
+           f'{"off" if name == "decode" else "on"}): steady state '
+           f'(replay-only dispatches, events) {windows} lists/s over the '
+           f'loop, {steady[name]["dispatch_lists_per_s"]:.1f} over the '
+           f'dispatches alone; whole run '
+           f'{runs[name][1]["examples_per_sec"]:.1f} lists/s')
+    _log(f'elwc: resumed run C to {PIPE_RESUMED_EPOCHS} epochs through '
+         f'skip_batches={done} (one capture, under the profiler): loss '
+         f'{runs["cache"][1]["loss"]:.4f} -> {resumed_history["loss"]:.4f}, '
+         f'ndcg@10 {resumed_history["ndcg@10"]:.4f}; kernels on the card '
+         f'{device_counts}; engines {resumed.dataset_builder.engine}; '
+         f'loaders (decode threads, cache) of run D '
+         f'{out["pipeline_loader"]["decode"]}, run C '
+         f'{out["pipeline_loader"]["cache"]}, the resume '
+         f'{resumed.dataset_builder.loader}; parsers '
+         f'{dict(parsers.parser_runs)}')
+    out.update(steady=steady, skips=skips, wrapper_launches=wrappers,
+               device_launches_resumed_run=device_counts,
+               history={k: h for k, (_, h) in runs.items()},
+               resumed_history=resumed_history,
+               engines=runs['cache'][0].dataset_builder.engine,
+               parser_runs=dict(parsers.parser_runs))
+
+    # Step 5: serving the export.
+    predictor = serving.Predictor.from_export(
+        _train_model(gen), latest, context, example,
+        label_feature_name='relevance', device='cuda')
+    x, labels, counts = proto.random_lists(B - 1, F, PIPE_MIN_DOCS, L,
+                                           seed=SEED + 26)
+    x_top, labels_top, _ = proto.random_lists(1, F, L, L, seed=SEED + 27)
+    x = np.concatenate([x_top, x])
+    labels = np.concatenate([labels_top, labels])
+    counts = np.concatenate([[L], counts])
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    lists = [[{'float_features': x[d], 'relevance': labels[d:d + 1]}
+              for d in range(starts[i], starts[i + 1])] for i in range(B)]
+    request = [proto.make_elwc({}, docs) for docs in lists]
+    bucket = parsers.bucket_list_size(L)
+    scores = predictor.predict(request)
+    if scores.shape != (B, bucket):
+      _fail(f'predict: scores {scores.shape}, not {(B, bucket)}')
+    features = np.zeros((B, bucket, F), np.float32)
+    mask = np.arange(bucket)[None, :] < counts[:, None]
+    features[mask] = x
+    batch = batch_lib.batch_from_labels(
+        np.where(mask, 0.0, -1.0).astype(np.float32),
+        examples={'float_features': features}, mask=mask)
+    want = predictor.score_batch(batch)
+    scale = np.abs(want[mask]).max()
+    predict_err = float(np.abs(scores[mask] - want[mask]).max())
+    if (not np.allclose(scores[mask], want[mask], rtol=1e-4,
+                        atol=1e-4 * scale)
+        or not (scores[~mask] == np.float32(layers.PADDING_LOGIT)).all()):
+      _fail(f'predict != score_batch: max |diff| {predict_err} (largest '
+            f'score {scale}), or a padded slot is not log(1e-10)')
+    pointwise = [proto.make_example(docs[0]) for docs in lists]
+    singles = [proto.make_elwc({}, docs[:1]) for docs in lists]
+    regressed = predictor.regress(pointwise)
+    as_lists = predictor.predict(singles)
+    regress_err = float(np.abs(regressed - as_lists[:, 0]).max())
+    if (regressed.shape != (B,) or as_lists.shape != (B, 1)
+        or not np.allclose(regressed, as_lists[:, 0], rtol=1e-4,
+                           atol=1e-4 * np.abs(as_lists).max())):
+      _fail(f'regress != predict on single-document lists: max |diff| '
+            f'{regress_err}')
+    parse_ms, run_ms, device_ms, predict_ms = [], [], [], []
+    for _ in range(7):
+      t0 = time.perf_counter()
+      parsed = parsers.parse(request, context, predictor.example_feature_spec,
+                             bucket)
+      t1 = time.perf_counter()
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      predictor._run(parsed)
+      end.record()
+      torch.cuda.synchronize()
+      t2 = time.perf_counter()
+      predictor.predict(request)
+      t3 = time.perf_counter()
+      parse_ms.append((t1 - t0) * 1e3)
+      run_ms.append((t2 - t1) * 1e3)
+      device_ms.append(start.elapsed_time(end))
+      predict_ms.append((t3 - t2) * 1e3)
+    out['serve'] = {
+        'request_lists': B, 'bucket': bucket,
+        'documents': int(counts.sum()),
+        'predict_max_abs_diff_vs_score_batch': predict_err,
+        'regress_max_abs_diff_vs_predict': regress_err,
+        'parse_ms': statistics.median(parse_ms[2:]),
+        'run_ms': statistics.median(run_ms[2:]),
+        'device_ms': statistics.median(device_ms[2:]),
+        'predict_ms': statistics.median(predict_ms[2:])}
+    _log(f'elwc serve: predict on {B} ELWCs ({int(counts.sum())} documents) '
+         f'-> {scores.shape}, == score_batch within {predict_err:.3g} '
+         f'(largest score {scale:.3g}), padded slots log(1e-10); regress on '
+         f'{B} tf.Examples == predict on single-document lists within '
+         f'{regress_err:.3g}; B={B} request: parse '
+         f'{out["serve"]["parse_ms"]:.3f} ms on the host, then '
+         f'{out["serve"]["device_ms"]:.3f} ms by events on the card '
+         f'({out["serve"]["run_ms"]:.3f} ms of host time) from the '
+         f'page-locked copy to the scores on the host; whole predict '
+         f'{out["serve"]["predict_ms"]:.3f} ms')
+
+    # Step 6: the sparse token workload through the same builder.
+    tfrecord.write_records(os.path.join(root, 'tokens-train.tfrecord'),
+                           _token_records(SEED + 31, TOKEN_LISTS))
+    tfrecord.write_records(os.path.join(root, 'tokens-vali.tfrecord'),
+                           _token_records(SEED + 32, SPARSE_B))
+    token_builder = pipeline_lib.SimpleDatasetBuilder(
+        *_token_specs(), hparams_lib.DatasetHparams(
+            train_input_pattern=os.path.join(root, 'tokens-train.tfrecord'),
+            valid_input_pattern=os.path.join(root, 'tokens-vali.tfrecord'),
+            train_batch_size=SPARSE_B, valid_batch_size=SPARSE_B,
+            list_size=SPARSE_L, dataset_engine='native_loader'), seed=SEED)
+    token_pipe = pipeline_lib.SimplePipeline(
+        _sparse_model(gen), token_builder, hparams_lib.PipelineHparams(
+            model_dir=os.path.join(root, 'model_tokens'), num_epochs=1,
+            steps_per_epoch=TOKEN_STEPS, validation_steps=1,
+            learning_rate=1e-3, loss='softmax_loss', optimizer='lazy_adam',
+            steps_per_execution=KSTEPS), device='cuda')
+    _reset_all_launches()
+    token_before = steps.kernel_launch_counts()
+    result = {}
+    token_device = _kernel_counts(
+        lambda: result.update(history=token_pipe.train_and_validate()))
+    token_after = steps.kernel_launch_counts()
+    run = token_pipe._multi_step
+    if run.captures != 1 or token_pipe.final_state.step != TOKEN_STEPS:
+      _fail(f'elwc tokens: {run.captures} captures, step '
+            f'{token_pipe.final_state.step}')
+    if not all(math.isfinite(v) for v in result['history'].values()):
+      _fail(f'elwc tokens: a metric is not finite: {result["history"]}')
+    token_wrappers, token_measured = _card_launches(
+        'elwc tokens', token_before, token_before, token_after, run,
+        token_device)
+    out['tokens'] = {'history': result['history'],
+                     'wrapper_launches': token_wrappers,
+                     'device_launches': token_device}
+    _log(f'elwc tokens: EmbeddingDNNScorer(256-128) over two '
+         f'{SPARSE_VOCAB} x {SPARSE_DIM} tables, lazy_adam, '
+         f'{TOKEN_STEPS} steps of B={SPARSE_B} lists of up to {SPARSE_L} '
+         f'documents, hashed string tokens through the native loader: '
+         f'loss {result["history"]["loss"]:.4f}; kernels on the card '
+         f'{token_device}')
+    del token_pipe, token_builder
+    torch.cuda.empty_cache()
+    return out, wrappers, measured, token_wrappers, token_measured
   finally:
     shutil.rmtree(root, ignore_errors=True)
 
@@ -2673,6 +3205,17 @@ def main():
                'bwd_mats'):
     if pipeline_launches[name] == 0 or pipeline_device[name] == 0:
       _fail(f'the pipeline never launched {name}')
+  # Phase 18: the ELWC path; its flagship runs and its token run each start
+  # from counts of 0.
+  (elwc_numbers, elwc_launches, elwc_device, token_launches,
+   token_device) = _elwc_phase(gen)
+  for name in ('sorted_values_and_ranks', 'layer_forward', 'bwd_stats',
+               'bwd_mats'):
+    if elwc_launches[name] == 0 or elwc_device[name] == 0:
+      _fail(f'the ELWC pipeline never launched {name}')
+  if (token_launches['scatter_rows_multi'] == 0
+      or token_device['scatter_rows_multi'] == 0):
+    _fail('the ELWC token run never launched scatter_rows_multi')
   timings = {
       'build_s': build_s, 'hgmma': hgmma,
       'fused': fused_times, **train_times,
@@ -2687,12 +3230,12 @@ def main():
       'eval_step_ms': eval_step_ms,
       'eval_lists_per_s': B / eval_step_ms * 1e3,
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
-      'kstep': kstep, 'pipeline': pipeline_numbers,
+      'kstep': kstep, 'pipeline': pipeline_numbers, 'elwc': elwc_numbers,
       'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
-    # Phase 18 (optional): the kernels' resources and where the device
+    # Phase 19 (optional): the kernels' resources and where the device
     # time of an eval step, a serve request and the train steps goes.
     for source in sources:
       _log(f'ptxas {source}: {_ptxas_summary(build.library_path(source))}')
@@ -2815,6 +3358,10 @@ def main():
     entry['launches_pipeline_wrapper'] = pipeline_launches[entry['name']]
     entry['launches_pipeline_resumed_device'] = pipeline_device[entry['name']]
     entry['launches_per_replay'] = per_replay.get(entry['name'], 0)
+    entry['launches_elwc_pipeline_wrapper'] = elwc_launches[entry['name']]
+    entry['launches_elwc_resumed_device'] = elwc_device[entry['name']]
+    entry['launches_elwc_tokens_wrapper'] = token_launches[entry['name']]
+    entry['launches_elwc_tokens_device'] = token_device[entry['name']]
   print(card)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

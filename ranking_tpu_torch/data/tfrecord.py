@@ -1,16 +1,16 @@
-"""TFRecord container writing without TensorFlow.
+"""TFRecord container reading and writing without TensorFlow.
 
-The port's copy of the writer half of ``ranking_tpu/data/tfrecord.py``: the
-TFRecord wire format (uint64 length, masked crc32c of the length, payload,
-masked crc32c of the payload), with valid checksums so that the files
-round-trip through other TFRecord readers.
+The port's copy of ``ranking_tpu/data/tfrecord.py``: the TFRecord wire
+format (uint64 length, masked crc32c of the length, payload, masked crc32c
+of the payload), written with valid checksums so that the files round-trip
+through other TFRecord readers.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import Iterable, List
+from typing import Iterable, Iterator, List, Optional
 
 # --- crc32c (Castagnoli), table-driven ------------------------------------
 
@@ -62,3 +62,42 @@ def write_records(path: str, records: Iterable[bytes]) -> int:
       n += 1
   os.replace(tmp, path)
   return n
+
+
+def read_records(path: str, verify: bool = False) -> Iterator[bytes]:
+  """Yields the record payloads of one TFRecord file; with ``verify`` the
+  checksums are checked too. A truncated record raises ``IOError``."""
+  with open(path, 'rb') as f:
+    while True:
+      header = f.read(12)
+      if not header:
+        return
+      if len(header) < 12:
+        raise IOError(f'{path}: truncated record header')
+      length, length_crc = struct.unpack('<QI', header)
+      if verify and masked_crc(header[:8]) != length_crc:
+        raise IOError(f'{path}: corrupted record length crc')
+      payload = f.read(length)
+      if len(payload) < length:
+        raise IOError(f'{path}: truncated record payload')
+      footer = f.read(4)
+      if len(footer) < 4:
+        raise IOError(f'{path}: truncated record data crc')
+      (data_crc,) = struct.unpack('<I', footer)
+      if verify and masked_crc(payload) != data_crc:
+        raise IOError(f'{path}: corrupted record data crc')
+      yield payload
+
+
+def read_all_records(paths, verify: bool = False,
+                     limit: Optional[int] = None) -> List[bytes]:
+  """The payloads of one file or of several, in order, up to ``limit``."""
+  if isinstance(paths, (str, os.PathLike)):
+    paths = [paths]
+  out: List[bytes] = []
+  for p in paths:
+    for rec in read_records(str(p), verify=verify):
+      out.append(rec)
+      if limit is not None and len(out) >= limit:
+        return out
+  return out

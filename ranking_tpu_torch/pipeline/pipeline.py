@@ -1,24 +1,27 @@
 """End-to-end train-and-validate pipelines.
 
-The port's copy of ``ranking_tpu/pipeline/pipeline.py`` for its LIBSVM main
-path: ``LibSVMDatasetBuilder``, ``SimplePipeline.train_and_validate`` and
-``RankingPipeline``. The pipeline owns the train state, the train step (K
-steps per dispatch, on CUDA as replays of one captured graph), the eval
-loop, checkpoint and resume, the plateau learning rate, early stopping,
-best tracking, the metrics log, TensorBoard scalars and the latest and
-best exports.
+The port's copy of ``ranking_tpu/pipeline/pipeline.py``:
+``SimpleDatasetBuilder`` (serialized protos in TFRecord files, through the
+C++ streaming loader or the Python stream), ``LibSVMDatasetBuilder``,
+``SimplePipeline.train_and_validate`` and ``RankingPipeline``. The
+pipeline owns the train state, the train step (K steps per dispatch, on
+CUDA as replays of one captured graph), the eval loop, checkpoint and
+resume, the plateau learning rate, early stopping, best tracking, the
+metrics log, TensorBoard scalars and the latest and best exports.
 
 It takes an ``nn.Module`` that already holds its weights: the port has no
 ``init(rng)``, so a run that should start from the JAX package's weights
 converts them first (``convert.from_flax``). There is no mesh: one card.
 A dataset builder is any object with ``train_batches()`` and
-``valid_batches()`` iterators of ``RankingBatch``. ``SimpleDatasetBuilder``
-and ``MultiLabelDatasetBuilder`` (serialized ELWC through the C++ loader)
-and ``MultiTaskPipeline`` are not ported yet.
+``valid_batches()`` iterators of ``RankingBatch``; one whose
+``train_batches`` takes ``skip_batches`` resumes without parsing the
+batches it skips. ``MultiLabelDatasetBuilder`` and ``MultiTaskPipeline``
+are not ported yet.
 """
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import math
 import os
@@ -33,13 +36,107 @@ from ranking_tpu_torch.data.batch import RankingBatch, stack_numpy_batches
 from ranking_tpu_torch.ops import loss_registry, metric_registry
 from ranking_tpu_torch.ops.reductions import Reduction
 from ranking_tpu_torch.pipeline.hparams import (
-    PipelineHparams, optimizer_from_hparams, sparse_optimizer_from_hparams)
+    DatasetHparams, PipelineHparams, optimizer_from_hparams,
+    sparse_optimizer_from_hparams)
 from ranking_tpu_torch.train import checkpoint
 from ranking_tpu_torch.train import sparse as sparse_lib
 from ranking_tpu_torch.train import state as state_lib
 from ranking_tpu_torch.train import steps
 from ranking_tpu_torch.utils import tensorboard
 from ranking_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+_ENGINES = ('auto', 'native_loader', 'python')
+
+
+class SimpleDatasetBuilder:
+  """TFRecord-backed dataset builder (keras/pipeline.py:1026-1117).
+
+  ``hparams.dataset_engine`` picks the stream of each split: 'native_loader'
+  (``dataset.native_ranking_dataset``, the C++ loader, with the
+  decoded-once cache at ``dataset_cache``), 'python'
+  (``dataset.build_ranking_dataset``), or 'auto', which takes the loader
+  wherever ``native.loader_supported`` accepts the specs, format and list
+  size. ``engine`` holds what each split resolved to, and ``loader`` the
+  decode threads and cache state ('off', 'build' or 'read') of each
+  split's newest native stream. An engine asked for by name is taken: the
+  loader raises for specs it does not serve, and for a ``dataset_cache``
+  it cannot open or lock, and nothing falls back. The train stream
+  repeats and drops its partial batch; the validation stream is one pass
+  that keeps it (python/data.py:1008).
+  """
+
+  def __init__(self, context_feature_spec, example_feature_spec,
+               hparams: DatasetHparams, seed: Optional[int] = None,
+               label_feature_name=None):
+    from ranking_tpu_torch.data import native
+    self.context_feature_spec = dict(context_feature_spec)
+    self.example_feature_spec = dict(example_feature_spec)
+    self.hparams = hparams
+    self.seed = seed
+    self.label_feature_name = (
+        hparams.label_feature_name if label_feature_name is None
+        else label_feature_name)
+    if hparams.dataset_engine not in _ENGINES:
+      raise ValueError(f'dataset_engine {hparams.dataset_engine!r}; one of '
+                       f'{_ENGINES}')
+    self.engine = {}
+    self.loader = {}
+    for split, list_size in (('train', hparams.list_size),
+                             ('valid', self._valid_list_size)):
+      engine = hparams.dataset_engine
+      if engine == 'auto':
+        engine = ('native_loader' if native.loader_supported(
+            self.context_feature_spec, self.example_feature_spec,
+            hparams.dataset_reader, list_size) else 'python')
+      self.engine[split] = engine
+    if hparams.dataset_cache is not None and 'python' in self.engine.values():
+      raise ValueError(
+          f'dataset_cache is set, but a split resolved to the python stream '
+          f'({self.engine}); the decoded-once cache lives in the native '
+          'loader')
+
+  @property
+  def _valid_list_size(self) -> Optional[int]:
+    return self.hparams.valid_list_size or self.hparams.list_size
+
+  def _batches(self, split, pattern, batch_size, list_size, shuffle, epochs,
+               skip_batches=0) -> Iterator[RankingBatch]:
+    hp = self.hparams
+    common = dict(
+        data_format=hp.dataset_reader, batch_size=batch_size,
+        context_feature_spec=self.context_feature_spec,
+        example_feature_spec=self.example_feature_spec,
+        label_feature_name=self.label_feature_name, list_size=list_size,
+        convert_labels_to_binary=hp.convert_labels_to_binary,
+        epochs=epochs, shuffle=shuffle,
+        shuffle_buffer_size=hp.shuffle_buffer_size,
+        mask_feature_name=hp.mask_feature_name,
+        size_feature_name=hp.size_feature_name,
+        drop_remainder=epochs is None, skip_batches=skip_batches,
+        seed=self.seed)
+    if self.engine[split] == 'native_loader':
+      stream = dataset.native_ranking_dataset(
+          pattern, cache_dir=hp.dataset_cache, **common)
+      self.loader[split] = {'threads': stream.loader.num_threads,
+                            'cache': stream.loader.cache_state}
+      return stream
+    return dataset.build_ranking_dataset(
+        pattern, interleave_files=hp.interleave_files, **common)
+
+  def train_batches(self, skip_batches: int = 0) -> Iterator[RankingBatch]:
+    """The repeating, shuffled train stream. ``skip_batches`` drops its
+    leading batches unparsed (resume): the stream goes on bitwise as the
+    unskipped one after as many batches."""
+    return self._batches('train', self.hparams.train_input_pattern,
+                         self.hparams.train_batch_size,
+                         self.hparams.list_size, shuffle=True, epochs=None,
+                         skip_batches=skip_batches)
+
+  def valid_batches(self) -> Iterator[RankingBatch]:
+    return self._batches('valid', self.hparams.valid_input_pattern,
+                         self.hparams.valid_batch_size,
+                         self._valid_list_size, shuffle=False, epochs=1)
 
 
 class LibSVMDatasetBuilder:
@@ -212,8 +309,10 @@ class SimplePipeline:
       step += chunk
 
   def _resumed_stream(self, raw_iter, first, step: int):
-    """The train stream, fast-forwarded by ``step`` batches (pulled and
-    dropped) when resuming with ``resume_dataset``."""
+    """The train stream, fast-forwarded by ``step`` batches when resuming
+    with ``resume_dataset``: by the builder's own ``skip_batches`` where
+    its ``train_batches`` takes one (no parse of the skipped batches),
+    else pulled and dropped."""
     base_iter = itertools.chain([first], raw_iter)
     if not (self.hparams.resume_dataset and step > 0):
       return base_iter
@@ -224,16 +323,38 @@ class SimplePipeline:
           '(seed=None re-shuffles differently on every construction, '
           'so the fast-forwarded stream would not match the '
           'interrupted run); pass an explicit seed to the builder')
+    if 'skip_batches' in inspect.signature(
+        self.dataset_builder.train_batches).parameters:
+      if hasattr(raw_iter, 'close'):
+        raw_iter.close()  # releases a loader's threads and buffers
+      return iter(self.dataset_builder.train_batches(skip_batches=step))
     for _ in range(step):
       next(base_iter)
     return base_iter
 
+  def _steps_per_dispatch(self) -> int:
+    """``steps_per_execution``, and 1 for bucketed list sizes on the CPU:
+    consecutive batches may then have other shapes, which one stack of K
+    batches cannot hold. On CUDA a graph replays one shape, so bucketed
+    batches under K > 1 raise there instead of stepping eagerly."""
+    spe = max(1, int(self.hparams.steps_per_execution))
+    ds_hp = getattr(self.dataset_builder, 'hparams', None)
+    if spe > 1 and ds_hp is not None and getattr(ds_hp, 'list_size',
+                                                 0) is None:
+      if self.device.type == 'cuda':
+        raise ValueError(
+            f'steps_per_execution={spe} with list_size=None (bucketed list '
+            'sizes): a CUDA graph replays one batch shape; set list_size '
+            'or steps_per_execution=1')
+      spe = 1
+    return spe
+
   def train_and_validate(self, verbose: bool = False) -> Dict[str, float]:
     hp = self.hparams
+    spe = self._steps_per_dispatch()
     raw_iter = iter(self.dataset_builder.train_batches())
     first = next(raw_iter)  # the state's sparse features come from data
     state = self._build(first)
-    spe = max(1, int(hp.steps_per_execution))
     start_step = int(state.step)
     step = start_step
     total_steps = hp.num_epochs * hp.steps_per_epoch

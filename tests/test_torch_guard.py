@@ -1,5 +1,11 @@
-"""The PyTorch port stands alone and runs on the card unless told not to."""
+"""The PyTorch port stands alone and runs on the card unless told not to.
 
+It imports neither JAX, nor the JAX package, nor ``google.protobuf``: the
+card's machine has no protobuf, so the port reads and writes the wire
+format by hand (``data/proto.py``).
+"""
+
+import ast
 import os
 import subprocess
 import sys
@@ -23,12 +29,13 @@ for mod in pkgutil.walk_packages(ranking_tpu_torch.__path__,
                                  'ranking_tpu_torch.'):
   importlib.import_module(mod.name)
 for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
-             'data.native', 'data.libsvm', 'data.tfrecord',
-             'utils.tensorboard'):
+             'data.native', 'data.libsvm', 'data.tfrecord', 'data.proto',
+             'data.parsers', 'data.dataset', 'utils.tensorboard'):
   assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')
-             or m == 'ranking_tpu' or m.startswith('ranking_tpu.'))
+             or m == 'ranking_tpu' or m.startswith('ranking_tpu.')
+             or m == 'google.protobuf' or m.startswith('google.protobuf.'))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -39,6 +46,35 @@ def test_port_imports_neither_jax_nor_the_jax_package():
   proc = subprocess.run([sys.executable, '-c', _CHECK], capture_output=True,
                         text=True, timeout=120, cwd=repo)
   assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_modules(path):
+  with open(path) as f:
+    tree = ast.parse(f.read(), path)
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      yield from (alias.name for alias in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.module:
+      yield node.module
+      yield from (f'{node.module}.{alias.name}' for alias in node.names)
+
+
+def test_no_source_of_the_port_or_chip_smoke_imports_protobuf_or_jax():
+  """Every import statement, also those inside functions that the runtime
+  check above does not run (``chip_smoke.py`` runs only on the card)."""
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  paths = [os.path.join(repo, 'chip_smoke.py')]
+  for root, _, names in os.walk(os.path.join(repo, 'ranking_tpu_torch')):
+    paths += [os.path.join(root, n) for n in names if n.endswith('.py')]
+  bad = []
+  for path in paths:
+    for name in _imported_modules(path):
+      top = name.split('.')[0]
+      if (top in ('jax', 'jaxlib', 'flax', 'optax', 'ranking_tpu')
+          or name == 'google.protobuf'
+          or name.startswith('google.protobuf.')):
+        bad.append((os.path.relpath(path, repo), name))
+  assert len(paths) > 40 and not bad, bad
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):

@@ -20,10 +20,19 @@ resumed with ``resume_dataset`` equals the straight run bitwise; best
 tracking keeps the latest checkpoints; the plateau hook lowers the rate;
 early stopping stops; the schedules, clipping and optimizers equal optax's
 step by step.
+
+Over ELWC files written by the port's encoder, ``SimpleDatasetBuilder``
+(the native loader) feeds ``train_and_validate`` to the JAX pipeline's
+per-epoch metrics within the same rtol 1e-4; a resumed run skips its
+batches through ``skip_batches`` and ends bitwise where the straight run
+ends, for both engines; bucketed list sizes run one step a dispatch on the
+CPU and raise under K > 1 on CUDA.
 """
 
+import itertools
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -34,10 +43,14 @@ import torch
 
 from ranking_tpu import models as jax_models
 from ranking_tpu import train as jax_train
+from ranking_tpu.data import parsers as jax_parsers
 from ranking_tpu.pipeline import hparams as jax_hparams
 from ranking_tpu.pipeline import pipeline as jax_pipeline
 from ranking_tpu_torch import convert
 from ranking_tpu_torch.data import libsvm
+from ranking_tpu_torch.data import parsers
+from ranking_tpu_torch.data import proto as torch_proto
+from ranking_tpu_torch.data import tfrecord
 from ranking_tpu_torch.models import scorers
 from ranking_tpu_torch.pipeline import hparams as hparams_lib
 from ranking_tpu_torch.pipeline import pipeline
@@ -330,3 +343,170 @@ def test_hparams_guards():
   assert hparams_lib.sparse_optimizer_from_hparams(
       hparams_lib.PipelineHparams(optimizer='lazy_adagrad', **base)
   ).learning_rate == 0.1
+
+
+# --- serialized ELWC through SimpleDatasetBuilder ----------------------------
+
+
+def _elwc_specs(pkg):
+  return {}, {'float_features': pkg.FixedLenFeature((F,), 'float32', 0.0),
+              'relevance': pkg.FixedLenFeature((), 'int64', 0)}
+
+
+@pytest.fixture(scope='module')
+def elwc_files(tmp_path_factory):
+  """Two train files of 12 lists and a validation file of 10, ELWC from a
+  numpy seed (3 to 10 documents a list, labels from a noisy linear
+  score)."""
+  root = tmp_path_factory.mktemp('elwc')
+  rng = np.random.RandomState(4)
+  w = rng.randn(F)
+  for name, lists in (('train-0', 12), ('train-1', 12), ('vali', 10)):
+    records = []
+    for _ in range(lists):
+      x = rng.randn(rng.randint(3, 11), F).astype(np.float32)
+      rel = np.clip(np.round(x @ w + rng.randn(len(x)) + 1), 0, 4)
+      records.append(torch_proto.make_elwc({}, [
+          {'float_features': xi, 'relevance': [int(r)]}
+          for xi, r in zip(x, rel)]))
+    tfrecord.write_records(str(root / f'{name}.tfrecord'), records)
+  return str(root / 'train-*.tfrecord'), str(root / 'vali.tfrecord')
+
+
+def _elwc_builder(pkg, pipeline_module, files, seed=3, **kw):
+  context, example = _elwc_specs(pkg.parsers)
+  hp = pkg.hparams.DatasetHparams(
+      train_input_pattern=files[0], valid_input_pattern=files[1],
+      train_batch_size=B, valid_batch_size=B,
+      **{'list_size': L, 'shuffle_buffer_size': 8, **kw})
+  return pipeline_module.SimpleDatasetBuilder(context, example, hp,
+                                              seed=seed)
+
+
+_JAX = types.SimpleNamespace(parsers=jax_parsers, hparams=jax_hparams)
+_PORT = types.SimpleNamespace(parsers=parsers, hparams=hparams_lib)
+
+
+@pytest.fixture(scope='module')
+def jax_elwc_run(elwc_files, tmp_path_factory):
+  model_dir = str(tmp_path_factory.mktemp('jax_elwc') / 'model')
+  builder = _elwc_builder(_JAX, jax_pipeline, elwc_files)
+  model = jax_models.RankingModel(
+      scorer=jax_models.DNNScorer(hidden_layer_dims=HIDDEN, dropout=0.0,
+                                  use_batch_norm=False),
+      transform_name='log1p')
+  hp = jax_hparams.PipelineHparams(model_dir=model_dir, mesh_data=1, **RUN)
+  jax_pipeline.SimplePipeline(model, builder, hp).train_and_validate()
+  first = next(iter(builder.train_batches()))
+  initial = jax_train.create_train_state(
+      model, optax.adam(hp.learning_rate), jax.random.PRNGKey(hp.seed),
+      first.context, first.examples, first.mask)
+  return _log(model_dir), convert.from_flax(
+      jax.tree.map(np.asarray, {'params': initial.params}))
+
+
+def _elwc_run(files, state_dict, model_dir, engine='auto', cache=None, **kw):
+  builder = _elwc_builder(_PORT, pipeline, files, dataset_engine=engine,
+                          dataset_cache=cache)
+  hp = hparams_lib.PipelineHparams(model_dir=str(model_dir),
+                                   **{**RUN, **kw})
+  pipe = pipeline.SimplePipeline(_model(state_dict), builder, hp,
+                                 device='cpu')
+  pipe.train_and_validate()
+  return pipe
+
+
+def test_elwc_pipeline_matches_the_jax_pipeline(elwc_files, jax_elwc_run,
+                                                tmp_path):
+  """The same ELWC files through both packages' SimpleDatasetBuilder (the
+  native loaders, whose batch orders are equal) and train_and_validate:
+  every epoch's metrics within the LIBSVM test's rtol 1e-4."""
+  want_log, initial = jax_elwc_run
+  pipe = _elwc_run(elwc_files, initial, tmp_path / 'model')
+  assert pipe.dataset_builder.engine == {'train': 'native_loader',
+                                         'valid': 'native_loader'}
+  assert [v['cache'] for v in pipe.dataset_builder.loader.values()] == [
+      'off', 'off']
+  got_log = _log(tmp_path / 'model')
+  assert [r['step'] for r in got_log] == [r['step'] for r in want_log] == [
+      3, 6]
+  for got, want in zip(got_log, want_log):
+    for name in METRICS:
+      np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                 err_msg=f'step {got["step"]} {name}')
+  assert (tmp_path / 'model' / 'export' / 'latest' / 'params.pt').exists()
+
+
+@pytest.mark.parametrize('engine', ['native_loader', 'native_loader_cached',
+                                    'python'])
+def test_elwc_resume_skips_batches_bitwise(elwc_files, jax_elwc_run,
+                                          tmp_path, engine, monkeypatch):
+  """A run stopped after one epoch and resumed with ``resume_dataset``
+  fast-forwards through the builder's ``skip_batches`` (nothing pulled and
+  dropped) and ends bitwise where the straight run ends; with the epoch
+  cache, the first run builds it and the resumed run reads it."""
+  _, initial = jax_elwc_run
+  cache = None
+  if engine == 'native_loader_cached':
+    engine, cache = 'native_loader', str(tmp_path / 'cache')
+  straight = _elwc_run(elwc_files, initial, tmp_path / 'straight', engine,
+                       resume_dataset=True)
+  first = _elwc_run(elwc_files, initial, tmp_path / 'resumed', engine,
+                    cache=cache, num_epochs=1, resume_dataset=True)
+  skips = []
+  train_batches = pipeline.SimpleDatasetBuilder.train_batches
+
+  def recording(self, skip_batches=0):
+    skips.append(skip_batches)
+    return train_batches(self, skip_batches)
+
+  monkeypatch.setattr(pipeline.SimpleDatasetBuilder, 'train_batches',
+                      recording)
+  resumed = _elwc_run(elwc_files, initial, tmp_path / 'resumed', engine,
+                      cache=cache, resume_dataset=True)
+  assert skips == [0, 3] and resumed.final_state.step == 6
+  if cache:
+    assert first.dataset_builder.loader['train']['cache'] == 'build'
+    assert resumed.dataset_builder.loader['train']['cache'] == 'read'
+  for k, v in _params(straight).items():
+    assert torch.equal(v, _params(resumed)[k]), k
+
+
+def test_bucketed_list_sizes(elwc_files, jax_elwc_run, tmp_path):
+  """list_size=None: the Python stream pads each batch to its bucket; on
+  the CPU the batches run one a dispatch; on CUDA K steps a dispatch
+  raise, since a graph replays one batch shape."""
+  _, initial = jax_elwc_run
+  builder = _elwc_builder(_PORT, pipeline, elwc_files, list_size=None)
+  assert builder.engine == {'train': 'python', 'valid': 'python'}
+  shapes = {tuple(b.mask.shape) for b in itertools.islice(
+      builder.train_batches(), 6)}
+  assert len(shapes) > 1 and all(s[0] == B for s in shapes)
+  hp = hparams_lib.PipelineHparams(model_dir=str(tmp_path), **RUN)
+  pipe = pipeline.SimplePipeline(_model(initial), builder, hp, device='cpu')
+  assert pipe._steps_per_dispatch() == 1
+  history = pipe.train_and_validate()
+  assert np.isfinite(history['loss']) and pipe.final_state.step == 6
+  pipe.device = torch.device('cuda')
+  with pytest.raises(ValueError, match='steps_per_execution=2 with '
+                                       'list_size=None'):
+    pipe._steps_per_dispatch()
+
+
+def test_dataset_builder_guards(elwc_files):
+  with pytest.raises(ValueError, match='dataset_engine'):
+    _elwc_builder(_PORT, pipeline, elwc_files, dataset_engine='tf.data')
+  with pytest.raises(ValueError, match='dataset_cache'):
+    _elwc_builder(_PORT, pipeline, elwc_files, dataset_engine='python',
+                  dataset_cache='unused')
+  # The loader asked for by name is taken, and raises for specs it does
+  # not serve; nothing falls back to the Python stream.
+  builder = pipeline.SimpleDatasetBuilder(
+      {}, {'float_features': parsers.VarLenFeature('float32', max_len=F),
+           'relevance': parsers.FixedLenFeature((), 'int64', 0)},
+      hparams_lib.DatasetHparams(
+          train_input_pattern=elwc_files[0],
+          valid_input_pattern=elwc_files[1], train_batch_size=B,
+          valid_batch_size=B, list_size=L, dataset_engine='native_loader'))
+  with pytest.raises(ValueError, match='varlen'):
+    builder.train_batches()

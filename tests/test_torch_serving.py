@@ -5,11 +5,13 @@ flat-fed batch padded with ``pad_to``, ``num_valid_rows``, a val loss) are
 held against ``ranking_tpu.pipeline.serving`` and
 ``ranking_tpu.train.make_eval_step`` on the same numpy batches and carried
 weights. JAX runs once on its default XLA sort and once with the Pallas
-sort kernel forced in interpret mode. Tolerances: logits 1e-5, metrics
-1e-6.
+sort kernel forced in interpret mode. ``Predictor.predict`` and
+``regress`` are held against the JAX ``Predictor`` on the same serialized
+requests. Tolerances: logits 1e-5, metrics 1e-6.
 """
 
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from ranking_tpu import ops as jax_ops
 from ranking_tpu import train as jax_train
 from ranking_tpu.data import batch as jax_batch
 from ranking_tpu.data import dataset as jax_dataset
+from ranking_tpu.data import parsers as jax_parsers
 from ranking_tpu.models import scorers as jax_scorers
 from ranking_tpu.ops import metric_registry as jax_registry
 from ranking_tpu.ops.pallas import sort as psort
@@ -29,9 +32,12 @@ from ranking_tpu.pipeline import serving as jax_serving
 from ranking_tpu_torch import convert
 from ranking_tpu_torch.data import batch as torch_batch
 from ranking_tpu_torch.data import dataset as torch_dataset
+from ranking_tpu_torch.data import parsers
+from ranking_tpu_torch.data import proto as torch_proto
 from ranking_tpu_torch.models import scorers
 from ranking_tpu_torch.ops import metric_registry
 from ranking_tpu_torch.pipeline import serving
+from ranking_tpu_torch.train import checkpoint
 from ranking_tpu_torch.train import steps
 
 if os.environ.get('PYTEST_XDIST_WORKER'):
@@ -228,3 +234,86 @@ def test_restore_flat_examples_mirrors_jax_predicate():
 def test_eval_step_rejects_reserved_loss_name():
   with pytest.raises(ValueError, match='reserved'):
     steps.make_eval_step({'loss': None}, loss_fn=_torch_loss, device='cpu')
+
+
+# --- serialized requests: predict and regress --------------------------------
+
+
+def _request_specs(pkg):
+  return {'x': pkg.FixedLenFeature((F,), 'float32', 0.0),
+          'relevance': pkg.FixedLenFeature((), 'int64', 0)}
+
+
+def _elwcs(seed, lengths):
+  rng = np.random.RandomState(seed)
+  return [torch_proto.make_elwc({}, [
+      {'x': (rng.randn(F) * 4).astype(np.float32),
+       'relevance': [int(rng.randint(0, 5))]} for _ in range(n)])
+      for n in lengths]
+
+
+def _predictors(list_size=None):
+  jmodel, variables, tmodel, state = _model_pair()
+  want = jax_serving.Predictor(jmodel, variables, {},
+                               _request_specs(jax_parsers),
+                               list_size=list_size,
+                               label_feature_name='relevance')
+  got = serving.Predictor(tmodel, state, {}, _request_specs(parsers),
+                          list_size=list_size,
+                          label_feature_name='relevance', device='cpu')
+  return want, got
+
+
+@pytest.mark.parametrize('list_size', [None, 10])
+def test_predict_matches_jax(list_size):
+  """Logits at test_score_batch_matches_jax's tolerance, 1e-5; padded
+  slots at the sentinel in both."""
+  want_predictor, predictor = _predictors(list_size)
+  assert 'relevance' not in predictor.example_feature_spec
+  requests = _elwcs(5, [3, 12, 1, 7])
+  want = want_predictor.predict(requests)
+  got = predictor.predict(requests)
+  assert got.shape == want.shape == (4, list_size or 12)
+  assert got.dtype == np.float32
+  np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+  assert (got[0, 3:] == np.float32(np.log(1e-10))).all()
+
+
+def test_regress_matches_jax_and_predict():
+  """regress on tf.Examples == predict on the same documents as lists of
+  one (python/keras/pipeline_test.py:238), and == the JAX Predictor."""
+  want_predictor, predictor = _predictors()
+  rng = np.random.RandomState(6)
+  docs = [{'x': (rng.randn(F) * 4).astype(np.float32), 'relevance': [1]}
+          for _ in range(5)]
+  examples = [torch_proto.make_example(d) for d in docs]
+  lists = [torch_proto.make_elwc({}, [d]) for d in docs]
+  got = predictor.regress(examples)
+  assert got.shape == (5,)
+  np.testing.assert_allclose(got, want_predictor.regress(examples),
+                             atol=1e-5, rtol=0)
+  np.testing.assert_array_equal(got, predictor.predict(lists)[:, 0])
+  assert predictor.predict(lists).shape == (5, 1)
+
+
+def test_empty_requests_and_buckets():
+  _, predictor = _predictors()
+  assert predictor.predict([]).shape == (0, 1)
+  assert predictor.regress([]).shape == (0,)
+  assert _predictors(7)[1].predict([]).shape == (0, 7)
+  for longest, bucket in ((1, 1), (5, 6), (13, 16), (25, 32)):
+    assert predictor.predict(_elwcs(7, [1, longest])).shape == (2, bucket)
+
+
+def test_from_export_scores_as_the_exported_model(tmp_path):
+  _, predictor = _predictors()
+  export = str(tmp_path / 'export')
+  checkpoint.export_params(types.SimpleNamespace(model=predictor.model),
+                           export)
+  _, _, fresh, _ = _model_pair(seed=3)
+  loaded = serving.Predictor.from_export(
+      fresh, export, {}, _request_specs(parsers),
+      label_feature_name='relevance', device='cpu')
+  requests = _elwcs(8, [4, 9])
+  np.testing.assert_array_equal(loaded.predict(requests),
+                                predictor.predict(requests))
