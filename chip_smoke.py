@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's serving, eval, training and sparse embedding
-training paths, its K-step dispatch, its training pipeline and its ELWC
-path (serialized protos through the native loader, and serving requests)
-on one CUDA card.
+training paths, its K-step dispatch, its training pipeline, its ELWC
+path (serialized protos through the native loader, and serving requests),
+and its evaluation and serving artifact (the whole metric suite, the eval
+step as a CUDA graph, query-id and TREC-run evaluation, ``export_predictor``
+/ ``load_predictor``) on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -54,7 +56,11 @@ Phases (any failure exits non-zero before the last line is printed):
    ``Predictor.score_batch`` requests at B=1/7/128, L=200, checked against a
    float64 CPU recompute (rtol 1e-4, atol 1e-4 of the largest score; TF32
    off), then ``evaluate_dataset`` runs NDCG@1/5/10/full + MRR over flat-fed
-   flagship batches; the sort kernel's launches in this phase are counted;
+   flagship batches through the graphed eval step (one eager step, one
+   capture, 3 replays); the sort kernel's launches in this phase are
+   counted, as the wrapper counts them (the eager step and the capture) and
+   on the card by ``torch.profiler`` (the eager step and the replays), which
+   must equal the eager step's plus the capture's times the replays;
 5. eval checks: the same evaluation with the plain sort on the card agrees
    within 1e-6, and ``make_eval_step(num_valid_rows=...)`` on a batch padded
    with ``pad_to`` equals the unpadded batch's metrics within 1e-6;
@@ -140,13 +146,18 @@ Phases (any failure exits non-zero before the last line is printed):
    then a new pipeline resumed from its checkpoint to 3 (``resume_dataset``)
    under ``torch.profiler``: one capture a run, each wrapper's own kernel
    on the card in the resumed run as often as its eager calls plus its
-   captured launches times the replays, finite metrics,
+   captured launches times the replays (of the train graph and of the
+   eval step's graph), finite metrics,
    ``metrics.jsonl``, event files, checkpoints and ``export/latest``, whose
    params reload into a ``Predictor`` that scores bitwise as the trained
    model; steady-state lists/s (CUDA events around the first run's
    dispatches that only replay, per epoch window and over the dispatches
-   alone) beside the whole first run's, the eval's ms and the parser's
-   MB/s;
+   alone) beside the whole first run's, the eval's ms through the graphed
+   step and through the eager step it captured, in the same run (equal
+   metrics; one call each, then medians of 5 interleaved; the timed evals
+   must replay without a capture), and (median of 5,
+   apart: the validation feed, the graphed steps on batches already on the
+   card, the device's time) and the parser's MB/s;
 18. the ELWC path: ELWC TFRecords of the flagship shape written from the
    seed with the port's encoder (1,280 train lists in 4 files, 256
    validation lists); the native decoder held bit for bit against the
@@ -168,7 +179,36 @@ Phases (any failure exits non-zero before the last line is printed):
    sparse workload fed as ELWC of hashed string tokens through the same
    builder, 20 steps with ``lazy_adam`` at K = 10, row 10 counted on the
    card;
-19. with ``--profile`` only: every kernel's registers and spills from
+19. evaluation and the serving artifact, on the flagship model and phase
+   4's batches: (a) the reference's whole suite (``_suite_fns``: the 13
+   keys, the diversity metrics over synthetic subtopics of the labels) and
+   the validation loss through ``make_eval_step`` and ``GraphedEvalStep``
+   over the 4 batches and a fifth padded one (``num_valid_rows`` 100),
+   twice: graphed == eager bit for bit (states, ``val_loss``, logits); the
+   eager card metrics == the plain path on the CPU on the same logits
+   (``METRIC_TOL``); row 1 on the card in one replay (``torch.profiler``)
+   == what the capture recorded == an eager step's launches; how many of
+   the suite's sorts take the kernel; the step's device ms, operations,
+   host ms and idle share, eager and graphed. (b) ``evaluate_dataset``
+   with a query id (two lists a query, one split across each pair of
+   batches), 12 aggregated metrics and a predictions CSV: the card ==
+   the plain path on the same logits (metrics to ``METRIC_TOL``, CSV rows
+   equal), and the CPU forward's CSV == the card's (ids and labels equal,
+   scores to phase 4's tolerance; its metrics checked too when it orders
+   every list as the card). (c) ``trec.evaluate_run`` over qrels of 2,000
+   queries of 20-200 judged documents and a run that drops and adds
+   documents, written from the seed: card == CPU to ``METRIC_TOL``; ms a
+   query. (d) ``export_predictor`` of the flagship model on the CPU,
+   float32 and int8, buckets 1 and 256; ``load_predictor(device='cuda')``
+   in a fresh process that cannot import ``ranking_tpu_torch.models``
+   serves 128 ELWCs of 20-200 documents: float32 == the live
+   ``Predictor.predict`` within phase 4's tolerance, int8 within
+   ``INT8_TOL`` of float32, a list's top document changed only where two
+   float scores are within ``INT8_SWAP_GAP`` of the largest, in at most
+   ``INT8_MAX_SWAPS`` lists,
+   ``regress`` == ``predict`` on lists of one; ``params.npz`` sizes,
+   parse ms and device ms of the request;
+20. with ``--profile`` only: every kernel's registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
    busiest kernels of one eval step, one B=128 serve request and one train
    step of each loss and of the sparse step.
@@ -182,6 +222,7 @@ of phase 16's graphs), and last ``{"ok": true, "device": {...}}``.
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2290,19 +2331,23 @@ def _steady_state(spans, steps_per_epoch):
 
 
 def _card_launches(what, before, between, after, multi_step,
-                   device_counts):
+                   device_counts, eval_step):
   """Each wrapper's own kernel on the card in a profiled run (the counts
   from ``between`` to ``after``, ``device_counts`` its device events)
-  against what the wrappers recorded in it: their eager calls, and what
-  ``multi_step``'s capture recorded times its replays. Returns (wrapper
-  launches from ``before`` to ``after``, each wrapper's kernel launches on
-  the card in the profiled run)."""
+  against what the wrappers recorded in it: their eager calls, what
+  ``multi_step``'s capture recorded times its replays, and what each of
+  ``eval_step``'s captures recorded times its replays (all of them in the
+  profiled run). Returns (wrapper launches from ``before`` to ``after``,
+  each wrapper's kernel launches on the card in the profiled run)."""
   wrappers = {n: after[n] - before[n] for n in after}
   measured = {}
+  eval_captured = eval_step.captured_launches()
+  eval_replayed = eval_step.replayed_launches()
   for name, kernel in _ENTRY_KERNEL.items():
     recorded = after[name] - between[name]
-    expected = recorded + multi_step.captured_launches.get(name, 0) * (
-        multi_step.replays - 1)
+    expected = (recorded + multi_step.captured_launches.get(name, 0) * (
+        multi_step.replays - 1) + eval_replayed.get(name, 0)
+                - eval_captured.get(name, 0))
     sharing = [n for n, k in _ENTRY_KERNEL.items()
                if k == kernel and n != name and wrappers[n]]
     got = device_counts.get(kernel, 0) if wrappers[name] else 0
@@ -2311,8 +2356,9 @@ def _card_launches(what, before, between, after, multi_step,
             'told apart')
     if got != expected:
       _fail(f'{what}: {kernel} ran {got} times in the profiled run; the '
-            f'wrapper {name} recorded {recorded} calls and its graph '
-            f'replayed {multi_step.replays} times: {expected}')
+            f'wrapper {name} recorded {recorded} calls, the train graph '
+            f'replayed {multi_step.replays} times and the eval graphs '
+            f'{eval_step.replays}: {expected}')
     measured[name] = got
   return wrappers, measured
 
@@ -2328,6 +2374,7 @@ def _pipeline_phase(gen):
   import os
   import shutil
   import torch
+  from ranking_tpu_torch.data import dataset
   from ranking_tpu_torch.data import libsvm
   from ranking_tpu_torch.data import native
   from ranking_tpu_torch.pipeline import hparams as hparams_lib
@@ -2411,7 +2458,8 @@ def _pipeline_phase(gen):
     if steady_replays != PIPE_EPOCHS * steps_per_epoch - KSTEPS:
       _fail(f'pipeline: {steady_replays} steps in replay-only dispatches')
     wrappers, measured = _card_launches('pipeline', before, between, after,
-                                        resumed._multi_step, device_counts)
+                                        resumed._multi_step, device_counts,
+                                        resumed._eval_step)
     state = resumed.final_state
     if state.step != PIPE_RESUMED_EPOCHS * steps_per_epoch:
       _fail(f'pipeline: resumed to step {state.step}')
@@ -2444,10 +2492,66 @@ def _pipeline_phase(gen):
     probe = next(iter(builder.valid_batches()))
     if not (exported.score_batch(probe) == trained.score_batch(probe)).all():
       _fail('pipeline: the exported params score differently')
+    graphed = resumed._eval_step
+    eager = graphed.eval_step  # the step the graphs captured
+    eval_batches = -(-PIPE_VALID_LISTS // B)
+    captures, replays = graphed.captures, graphed.replays
     t0 = time.perf_counter()
-    resumed._run_eval(state)
+    graphed_metrics = resumed._run_eval(state)
     torch.cuda.synchronize()
     out['eval_ms'] = (time.perf_counter() - t0) * 1e3
+
+    def eager_eval():
+      with mock.patch.object(resumed, '_eval_step', eager):
+        return resumed._run_eval(state)
+
+    # The same eval through the eager step, in the same run: its one-call
+    # time, then both medians of 5, interleaved.
+    t0 = time.perf_counter()
+    eager_metrics = eager_eval()
+    torch.cuda.synchronize()
+    out['eager_eval_ms'] = (time.perf_counter() - t0) * 1e3
+    if eager_metrics != graphed_metrics:
+      _fail(f'pipeline: the graphed eval {graphed_metrics} != the eager '
+            f'eval {eager_metrics}')
+    medians = {'graphed': [], 'eager': []}
+    for _ in range(5):
+      for name, fn in (('graphed', lambda: resumed._run_eval(state)),
+                       ('eager', eager_eval)):
+        medians[name].append(_host_ms(fn, 1, warmup=0))
+    out['eval_median_ms'] = statistics.median(medians['graphed'])
+    out['eager_eval_median_ms'] = statistics.median(medians['eager'])
+    out['eval_ms_each'] = medians
+    if (graphed.captures != captures
+        or graphed.replays != replays + 6 * eval_batches):
+      _fail(f'pipeline: the timed evals captured {graphed.captures - captures}'
+            f' graphs and replayed {graphed.replays - replays} times, not '
+            f'{6 * eval_batches} replays alone')
+    if resumed._eval_step is not graphed:
+      _fail('pipeline: the eager yardstick left its step in the pipeline')
+    # Where an eval's time goes: the validation feed alone (lists gathered
+    # on the host, page-locked, copied), the graphed steps alone on batches
+    # already on the card (the metrics' readout included), and the
+    # device's own time in an eval.
+    def feed():
+      return list(dataset.prefetch_to_device(
+          builder.valid_batches(), 'cuda', flat_examples=True))
+
+    fed = feed()
+
+    def graphed_steps():
+      s = steps.init_metric_states(resumed.metric_fns, with_loss=True,
+                                   device='cuda')
+      for b in fed:
+        s, _ = resumed._eval_step(state.model, b, s,
+                                  num_valid_rows=b.batch_size)
+      torch.stack(list(steps.metric_results(s).values())).cpu()
+
+    out['eval_feed_ms'] = _host_ms(feed, 5, warmup=1)
+    out['eval_steps_ms'] = _host_ms(graphed_steps, 5, warmup=1)
+    prof = _profile(lambda: resumed._run_eval(state), calls=3)
+    out['eval_device_ms'] = prof['device_ms']
+    out['eval_device_ops'] = prof['device_ops']
     out.update(history=history, resumed_history=resumed_history,
                lists_per_s=history['examples_per_sec'],
                steady=steady, checkpoints=ckpts,
@@ -2466,7 +2570,16 @@ def _pipeline_phase(gen):
          f'over the loop (windows {windows}), '
          f'{steady["dispatch_lists_per_s"]:.1f} over the dispatches alone; '
          f'whole first run {out["lists_per_s"]:.1f} lists/s; eval of '
-         f'{PIPE_VALID_LISTS} lists {out["eval_ms"]:.1f} ms; kernels on the '
+         f'{PIPE_VALID_LISTS} lists {out["eval_ms"]:.1f} ms graphed, '
+         f'{out["eager_eval_ms"]:.1f} ms through the eager step (medians of 5,'
+         f' interleaved: graphed {out["eval_median_ms"]:.1f}, eager '
+         f'{out["eager_eval_median_ms"]:.1f}; equal metrics; no capture in the '
+         f'timed evals;'
+         f' the feed alone '
+         f'{out["eval_feed_ms"]:.1f}, the graphed steps alone '
+         f'{out["eval_steps_ms"]:.1f}, the device '
+         f'{out["eval_device_ms"]:.2f} ms over '
+         f'{out["eval_device_ops"]:.0f} operations); kernels on the '
          f'card in the resumed run {device_counts}; exported params reload '
          'and score equal')
     return out, wrappers, measured
@@ -2803,7 +2916,7 @@ def _elwc_phase(gen):
     if caches != {'train': 'read', 'valid': 'read'}:
       _fail(f'elwc resume: loader caches {caches}, not read')
     wrappers, measured = _card_launches('elwc', before, between, after, run,
-                                        device_counts)
+                                        device_counts, resumed._eval_step)
     model_dir = os.path.join(root, 'model_cache')
     with open(os.path.join(model_dir, 'metrics.jsonl')) as f:
       logged = [json.loads(line)['step'] for line in f]
@@ -2957,7 +3070,7 @@ def _elwc_phase(gen):
       _fail(f'elwc tokens: a metric is not finite: {result["history"]}')
     token_wrappers, token_measured = _card_launches(
         'elwc tokens', token_before, token_before, token_after, run,
-        token_device)
+        token_device, token_pipe._eval_step)
     out['tokens'] = {'history': result['history'],
                      'wrapper_launches': token_wrappers,
                      'device_launches': token_device}
@@ -2970,6 +3083,531 @@ def _elwc_phase(gen):
     del token_pipe, token_builder
     torch.cuda.empty_cache()
     return out, wrappers, measured, token_wrappers, token_measured
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase 19: evaluation and the serving artifact ---------------------------
+
+SUBTOPICS = 3                     # synthetic subtopics of the diversity metrics
+TREC_QUERIES = 2000               # the TREC run: 20-200 judged documents each
+TREC_SPEC = ('ndcg@1,ndcg@5,ndcg@10,ndcg,dcg@10,mrr,mrr@10:rel>=3,map,'
+             'precision@10,recall@10,hits@1,arp,ordered_pair_accuracy,bpref,'
+             'pwa')
+EXPORT_BUCKETS = (1, 256)
+# An int8 artifact's scores against the float one's, as a share of the float
+# scores' largest magnitude: the JAX package's bound
+# (tests/test_pipeline.py:912-950). Its test also wants the same argmax in
+# each of its few short lists; over 128 lists of up to 200 documents some
+# top two are closer than the int8 error, so a list may change its top
+# document only where the two float scores are within INT8_SWAP_GAP of the
+# float scores' largest magnitude (a third of INT8_TOL), and at most
+# INT8_MAX_SWAPS of the 128 lists (1 in 16) may change it.
+INT8_TOL = 0.03
+INT8_SWAP_GAP = 0.01
+INT8_MAX_SWAPS = 8
+# Metrics of two paths on the same scores: 1e-6, and 1e-6 of the value for
+# the metrics that run past 1 (DCG, ARP), where float32 sums in another
+# order differ by a few ulps and an absolute 1e-6 is finer than the format.
+METRIC_TOL = 1e-6
+
+
+def _subtopics(labels):
+  """Synthetic ``[B, L, S]`` subtopic labels of graded labels: a document
+  of grade g covers subtopics 1..g (of 3); padding stays -1."""
+  import torch
+  grades = torch.arange(1, SUBTOPICS + 1, dtype=torch.float32,
+                        device=labels.device)
+  covered = (labels[..., None] >= grades).to(torch.float32)
+  return torch.where(labels[..., None] >= 0, covered, -1.0)
+
+
+def _suite_fns():
+  """The reference's whole suite, the 13 keys: NDCG and DCG at 1/5/10/all,
+  MRR, ARP, precision@5, recall@10, MAP, hits@1, OPA, BPref, PWA@5, and
+  alpha-DCG@10 and precision-IA@5 over ``_subtopics`` of the labels."""
+  from ranking_tpu_torch.ops import metric_registry as registry
+  keys = registry.RankingMetricKey
+  fns = {}
+  for topn in (1, 5, 10, None):
+    tag = f'@{topn}' if topn else ''
+    fns[f'ndcg{tag}'] = registry.make_ranking_metric_fn(keys.NDCG, topn=topn)
+    fns[f'dcg{tag}'] = registry.make_ranking_metric_fn(keys.DCG, topn=topn)
+  for name, key, topn in (
+      ('mrr', keys.MRR, None), ('arp', keys.ARP, None),
+      ('precision@5', keys.PRECISION, 5), ('recall@10', keys.RECALL, 10),
+      ('map', keys.MAP, None), ('hits@1', keys.HITS, 1),
+      ('opa', keys.ORDERED_PAIR_ACCURACY, None), ('bpref', keys.BPREF, None),
+      ('pwa@5', keys.PWA, 5)):
+    fns[name] = registry.make_ranking_metric_fn(key, topn=topn)
+  for name, key, topn in (('alpha_dcg@10', keys.ALPHA_DCG, 10),
+                          ('precision_ia@5', keys.PRECISION_IA, 5)):
+    fn = registry.make_ranking_metric_fn(key, topn=topn)
+    fns[name] = (lambda labels, logits, features=None, fn=fn:
+                 fn(_subtopics(labels), logits))
+  if len(keys.all_keys()) != 13:
+    _fail(f'the registry lists {len(keys.all_keys())} metric keys, not 13')
+  return fns
+
+
+# The aggregated metrics of the query-id evaluation: every key that scores
+# graded labels (the diversity metrics need subtopics).
+_AGG_SPECS = {'ndcg@5': ('ndcg', 5), 'ndcg': ('ndcg', None),
+              'dcg@10': ('dcg', 10), 'mrr': ('mrr', None),
+              'arp': ('arp', None), 'precision@5': ('precision', 5),
+              'recall@10': ('recall', 10), 'map': ('map', None),
+              'hits@1': ('hits', 1), 'opa': ('ordered_pair_accuracy', None),
+              'bpref': ('bpref', None), 'pwa': ('pwa', 5)}
+
+
+class _FixedLogits:
+  """A stand-in model that returns given logits, one tensor a call, in
+  order: the plain path scores the card's logits."""
+
+  def __init__(self, logits):
+    self.logits = list(logits)
+
+  def __call__(self, context, examples, mask, training=False):
+    return self.logits.pop(0)
+
+  def to(self, device):
+    self.logits = [t.to(device) for t in self.logits]
+    return self
+
+
+def _metrics_close(what, got, want):
+  """got == want within METRIC_TOL (+ METRIC_TOL of the value); returns the
+  largest |difference|."""
+  if sorted(got) != sorted(want):
+    _fail(f'{what}: metric names {sorted(got)} != {sorted(want)}')
+  worst = 0.0
+  for name in want:
+    diff = abs(got[name] - want[name])
+    worst = max(worst, diff)
+    if not diff <= METRIC_TOL + METRIC_TOL * abs(want[name]):
+      _fail(f'{what}: {name} {got[name]} vs {want[name]}')
+  return worst
+
+
+def _read_rows(path):
+  import csv
+  with open(path) as f:
+    return list(csv.reader(f))
+
+
+def _suite_and_graph(model, eval_batches, gen):
+  """Phase 19a: the whole suite and the validation loss, eager against
+  graphed, bit for bit; eager on the card against the plain path on the
+  CPU on the same logits; the profiler's sort launches of one replay; the
+  two steps' device and host times. Returns (numbers, the eager logits of
+  ``eval_batches``)."""
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+  from ranking_tpu_torch.train import steps
+  fns = _suite_fns()
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  tail = dataset.flatten_examples(_make_batch(gen, 100).pad_to(B))
+  batches = [(b.to('cuda'), None) for b in eval_batches] + [
+      (tail.to('cuda'), 100)]
+  eager = steps.make_eval_step(fns, loss_fn=loss_fn, device='cuda')
+  graphed = steps.GraphedEvalStep(eager, 'cuda')
+
+  # Which of the suite's sorts take the kernel (2-D float channels) and
+  # which the plain path (3-D subtopics, boolean or integer channels).
+  sorts = cuda_sort.sorted_values_and_ranks.launches
+  with mock.patch.object(cuda_sort, 'sort_order',
+                         wraps=cuda_sort.sort_order) as plain_sorts:
+    eager(model, batches[0][0],
+          steps.init_metric_states(fns, True, device='cuda'))
+    torch.cuda.synchronize()
+  kernel_sorts = cuda_sort.sorted_values_and_ranks.launches - sorts
+  plain = plain_sorts.call_count
+
+  eager_logits = []
+  for run in range(2):  # the second pass starts again from zeroed states
+    es = steps.init_metric_states(fns, with_loss=True, device='cuda')
+    gs = steps.init_metric_states(fns, with_loss=True, device='cuda')
+    for i, (batch, rows) in enumerate(batches):
+      es, el = eager(model, batch, es, num_valid_rows=rows)
+      gs, gl = graphed(model, batch, gs, num_valid_rows=rows)
+      if run == 0 and i < len(eval_batches):
+        eager_logits.append(el)
+      if not torch.equal(el, gl):
+        _fail(f'graphed eval: logits of batch {i} differ from eager')
+      for name in es:
+        if not (torch.equal(es[name].total, gs[name].total)
+                and torch.equal(es[name].count, gs[name].count)):
+          _fail(f'graphed eval: {name} after batch {i} (pass {run}) '
+                f'{gs[name].total.item()}/{gs[name].count.item()} != eager '
+                f'{es[name].total.item()}/{es[name].count.item()}')
+  checked = graphed.replays
+  if graphed.captures != 1 or checked != 2 * len(batches) - 1:
+    _fail(f'graphed eval: {graphed.captures} captures, {checked} replays')
+  card = {k: v.item() for k, v in steps.metric_results(es).items()}
+
+  # The plain path: the same eval step on the CPU over the card's logits.
+  cpu_step = steps.make_eval_step(fns, loss_fn=loss_fn, device='cpu')
+  cs = steps.init_metric_states(fns, with_loss=True, device='cpu')
+  logits = eager_logits + [eager(
+      model, batches[-1][0],
+      steps.init_metric_states(fns, True, device='cuda'),
+      num_valid_rows=100)[1]]
+  for (batch, rows), lg in zip(batches, logits):
+    cs, _ = cpu_step(_FixedLogits([lg.cpu()]), batch.to('cpu'), cs,
+                     num_valid_rows=rows)
+  plain_worst = _metrics_close(
+      'eval suite, card vs the plain path on the CPU', card,
+      {k: v.item() for k, v in steps.metric_results(cs).items()})
+
+  # Row 1 on the card in one replay == what the wrapper counted at capture.
+  captured = graphed.captured_launches().get('sorted_values_and_ranks', 0)
+  replay = _kernel_counts(lambda: graphed(model, batches[1][0], gs))
+  if replay.get('rank_sort_kernel', 0) != captured or captured != kernel_sorts:
+    _fail(f'graphed eval: {replay.get("rank_sort_kernel", 0)} sort kernels '
+          f'on the card in a replay; the capture recorded {captured}, an '
+          f'eager step launches {kernel_sorts}')
+
+  times = {}
+  dev_batch = batches[1][0]
+  held = {'eager': es, 'graphed': gs}
+
+  def loop_step(name, step):
+    def call():  # as an eval loop calls it: states in, states out
+      held[name], _ = step(model, dev_batch, held[name])
+    return call
+
+  for name, fn in (('eager', loop_step('eager', eager)),
+                   ('graphed', loop_step('graphed', graphed))):
+    prof = _profile(fn)
+    host = _host_ms(fn, 30)
+    times[name] = {'device_ms': prof['device_ms'],
+                   'device_ops': prof['device_ops'], 'host_ms': host,
+                   'device_idle_share': 1.0 - prof['device_ms'] / host}
+  out = {'metrics': len(fns), 'kernel_sorts': kernel_sorts,
+         'plain_sorts': plain, 'replays': checked,
+         'captured_sort_launches': captured,
+         'max_abs_diff_vs_plain_cpu': plain_worst, 'times': times,
+         'values': card}
+  _log(f'eval suite: {len(fns)} metrics of the 13 keys + val_loss over '
+       f'{len(batches)} batches (the last padded, num_valid_rows=100), '
+       f'twice: graphed == eager bit for bit (states, val_loss, logits; 1 '
+       f'capture, {checked} replays); card == plain path on the CPU '
+       f'on the same logits within {plain_worst:.3g}; sorts of a step: '
+       f'{kernel_sorts} through the kernel, {plain} on the plain path '
+       f'(3-D, boolean or integer channels); a replay runs '
+       f'{replay.get("rank_sort_kernel", 0)} sort kernels, as captured. '
+       f'Step at B{B}xL{L}: ' + '; '.join(
+           f'{k} device {v["device_ms"]:.3f} ms over {v["device_ops"]:.0f} '
+           f'operations, host {v["host_ms"]:.3f} ms, idle '
+           f'{100 * v["device_idle_share"]:.1f}%' for k, v in times.items()))
+  return out, eager_logits
+
+
+def _query_id_eval(model, eval_batches, card_logits, root):
+  """Phase 19b: ``evaluate_dataset`` with a query id (consecutive lists
+  share a query, also across batches) and a predictions CSV, on the card
+  and on the CPU."""
+  import copy
+  import numpy as np
+  import torch
+  from ranking_tpu_torch.pipeline import serving
+  from ranking_tpu_torch.train import steps
+  fns = {k: v for k, v in _suite_fns().items()
+         if k in ('ndcg@5', 'ndcg', 'mrr', 'map', 'opa', 'pwa@5')}
+  batches = []
+  for i, batch in enumerate(eval_batches):
+    qid = (i * B + torch.arange(B) + 1) // 2
+    batches.append(batch.replace(context={'qid': qid[:, None]}))
+  paths = {k: os.path.join(root, f'{k}.csv') for k in ('card', 'plain',
+                                                       'cpu')}
+  t0 = time.perf_counter()
+  card = serving.evaluate_dataset(
+      model, None, batches, metric_fns=fns, query_id_feature='qid',
+      aggregated_metrics=_AGG_SPECS, predictions_csv=paths['card'],
+      device='cuda')
+  card_s = time.perf_counter() - t0
+  plain = serving.evaluate_dataset(
+      _FixedLogits([t.cpu() for t in card_logits]), None, batches,
+      metric_fns=fns, query_id_feature='qid', aggregated_metrics=_AGG_SPECS,
+      predictions_csv=paths['plain'], device='cpu')
+  worst = _metrics_close('query-id eval, card vs the plain path', card, plain)
+  rows = {k: _read_rows(p) for k, p in paths.items() if k != 'cpu'}
+  if rows['card'] != rows['plain']:
+    _fail('query-id eval: the card\'s CSV differs from the plain path\'s on '
+          'the same logits')
+  cpu_model = copy.deepcopy(model).to('cpu')
+  cpu = serving.evaluate_dataset(
+      cpu_model, None, batches, metric_fns=fns,
+      query_id_feature='qid', aggregated_metrics=_AGG_SPECS,
+      predictions_csv=paths['cpu'], device='cpu')
+  rows['cpu'] = _read_rows(paths['cpu'])
+  a = np.asarray(rows['card'][1:], np.float64)
+  c = np.asarray(rows['cpu'][1:], np.float64)
+  scale = np.abs(c[:, 2]).max()
+  score_err = float(np.abs(a[:, 2] - c[:, 2]).max())
+  if (rows['card'][0] != rows['cpu'][0] or a.shape != c.shape
+      or not np.array_equal(a[:, :2], c[:, :2])
+      or not np.allclose(a[:, 2], c[:, 2], rtol=1e-4, atol=1e-4 * scale)):
+    _fail(f'query-id eval: CSV rows of the card and of the CPU forward '
+          f'differ (scores max |diff| {score_err}, largest {scale})')
+  # Where the CPU forward orders every list as the card does, its metrics
+  # must agree too; float32 rounding of near-tied scores may swap a pair.
+  with torch.no_grad():
+    cpu_logits = [cpu_model(r.context, r.examples, r.mask) for r in (
+        steps.restore_flat_examples(b) for b in eval_batches)]
+  swapped = sum(
+      int((torch.sort(g.cpu(), dim=1, descending=True, stable=True).indices
+           != torch.sort(h, dim=1, descending=True,
+                         stable=True).indices).any(1).sum())
+      for g, h in zip(card_logits, cpu_logits))
+  cpu_worst = max(abs(card[k] - cpu[k]) for k in card)
+  if not swapped:
+    _metrics_close('query-id eval, card vs the CPU forward', card, cpu)
+  queries = len({r[0] for r in rows['card'][1:]})
+  out = {'queries': queries, 'rows': len(rows['card']) - 1,
+         'max_abs_diff_vs_plain': worst, 'csv_score_max_abs_diff_vs_cpu':
+         score_err, 'lists_ordered_differently_on_cpu': swapped,
+         'max_abs_diff_vs_cpu_forward': cpu_worst, 'card_s': card_s,
+         'values': card}
+  _log(f'query-id eval: {len(batches)} x {B} lists, {queries} queries (2 '
+       f'lists each, one split across each pair of batches), '
+       f'{len(_AGG_SPECS)} aggregated metrics + {len(fns)} streamed: card == '
+       f'the plain path on the same logits within {worst:.3g}, CSV rows '
+       f'equal; the CPU forward: CSV scores within {score_err:.3g} (largest '
+       f'{scale:.3g}), {swapped} lists ordered differently, metrics within '
+       f'{cpu_worst:.3g}' + (' (checked)' if not swapped else
+                             ' (reported, not checked)'))
+  return out
+
+
+def _write_trec_files(root):
+  """qrels of TREC_QUERIES queries of 20-200 judged documents (graded 0-4)
+  and a run that drops a tenth of them and adds up to 10 unjudged ones,
+  scores rounded to 6 decimals, from the seed."""
+  import numpy as np
+  rng = np.random.RandomState(SEED + 41)
+  qrels, run = os.path.join(root, 'qrels.txt'), os.path.join(root, 'run.txt')
+  with open(qrels, 'w') as fq, open(run, 'w') as fr:
+    for q in range(TREC_QUERIES):
+      n = rng.randint(PIPE_MIN_DOCS, L + 1)
+      grades = rng.choice(5, size=n, p=[.5, .3, .15, .04, .01])
+      fq.writelines(f'q{q} 0 d{q}_{i} {g}\n' for i, g in enumerate(grades))
+      kept = np.flatnonzero(rng.rand(n) > 0.1)
+      docs = [f'd{q}_{i}' for i in kept] + [
+          f'u{q}_{i}' for i in range(rng.randint(0, 11))]
+      scores = np.round(rng.randn(len(docs)) + 0.5 * np.concatenate(
+          [grades[kept], np.zeros(len(docs) - len(kept))]), 6)
+      order = np.argsort(-scores, kind='stable')
+      fr.writelines(f'q{q} Q0 {docs[i]} {r} {scores[i]:.6f} smoke\n'
+                    for r, i in enumerate(order, 1))
+  return qrels, run
+
+
+def _trec_eval(root):
+  """Phase 19c: ``trec.evaluate_run`` on the card and on the CPU."""
+  from ranking_tpu_torch.data import trec
+  qrels, run = _write_trec_files(root)
+  out, results = {}, {}
+  for where, device in (('card', 'cuda'), ('cpu', 'cpu')):
+    t0 = time.perf_counter()
+    results[where] = trec.evaluate_run(qrels, run, TREC_SPEC, batch_size=B,
+                                       device=device)
+    out[f'{where}_ms_per_query'] = ((time.perf_counter() - t0) * 1e3
+                                    / TREC_QUERIES)
+  worst = _metrics_close('TREC run, card vs CPU', results['card'],
+                         results['cpu'])
+  out.update(metrics=len(results['card']), max_abs_diff=worst,
+             values=results['card'])
+  _log(f'trec: {TREC_QUERIES} queries of 20-200 judged documents, a run '
+       f'that drops a tenth and adds unjudged ones; {len(results["card"])} '
+       f'metrics, card == CPU within {worst:.3g}; '
+       f'{out["card_ms_per_query"]:.4f} ms a query on the card, '
+       f'{out["cpu_ms_per_query"]:.4f} on the CPU (host clock, file reads '
+       'included)')
+  return out
+
+
+_SERVE_DRIVER = """
+import json, statistics, sys, time
+sys.modules['ranking_tpu_torch.models'] = None   # importing it raises
+import numpy as np, torch
+from ranking_tpu_torch.data import parsers, tfrecord
+from ranking_tpu_torch.pipeline import export
+request = list(tfrecord.read_records({request!r}))
+singles = list(tfrecord.read_records({singles!r}))
+pointwise = list(tfrecord.read_records({pointwise!r}))
+out = {{}}
+for name, path in {paths!r}.items():
+  lp = export.load_predictor(path, device='cuda')
+  scores = lp.predict(request)
+  reg, pred1 = lp.regress(pointwise), lp.predict(singles)
+  bucket = lp._bucket_for(int(parsers.elwc_list_sizes(request).max()))
+  parse_ms, device_ms, predict_ms = [], [], []
+  for _ in range(7):
+    t0 = time.perf_counter()
+    parsed = parsers.parse(request, lp.context_feature_spec,
+                           lp.example_feature_spec, bucket)
+    t1 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    lp._run(parsed, bucket)
+    end.record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lp.predict(request)
+    predict_ms.append((time.perf_counter() - t2) * 1e3)
+    parse_ms.append((t1 - t0) * 1e3)
+    device_ms.append(start.elapsed_time(end))
+  np.savez({root!r} + f'/{{name}}_scores.npz', scores=scores, reg=reg,
+           pred1=pred1)
+  out[name] = {{'parse_ms': statistics.median(parse_ms[2:]),
+               'device_ms': statistics.median(device_ms[2:]),
+               'predict_ms': statistics.median(predict_ms[2:]),
+               'variables_on': str(next(iter(
+                   torch.utils._pytree.tree_leaves(lp.variables))).device)}}
+blocked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                 and m.startswith('ranking_tpu_torch.models'))
+out['models_imported'] = blocked
+print(json.dumps(out))
+"""
+
+
+def _export_phase(model, root):
+  """Phase 19d: ``export_predictor`` of the flagship model on the CPU,
+  float32 and int8, served on the card by ``load_predictor`` in a fresh
+  process that cannot import ``ranking_tpu_torch.models``."""
+  import copy
+  import numpy as np
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.data import proto, tfrecord
+  from ranking_tpu_torch.models import layers
+  from ranking_tpu_torch.pipeline import export, serving
+  context, example = _elwc_specs()
+  cpu_model = copy.deepcopy(model).to('cpu')
+  sample = batch_lib.batch_from_labels(
+      np.zeros((2, EXPORT_BUCKETS[-1]), np.float32),
+      examples={'float_features': np.zeros((2, EXPORT_BUCKETS[-1], F),
+                                           np.float32)})
+  paths, export_s, sizes = {}, {}, {}
+  for name, quantize in (('float32', None), ('int8', 'int8')):
+    paths[name] = os.path.join(root, f'artifact_{name}')
+    t0 = time.perf_counter()
+    export.export_predictor(cpu_model, None, context, example, paths[name],
+                            sample, list_size_buckets=EXPORT_BUCKETS,
+                            label_feature_name='relevance',
+                            quantize=quantize)
+    export_s[name] = time.perf_counter() - t0
+    sizes[name] = os.path.getsize(os.path.join(paths[name], 'params.npz'))
+    with open(os.path.join(paths[name], 'manifest.json')) as f:
+      if 'devices' in json.load(f):
+        _fail(f'export {name}: the program names a device')
+  # One list at L, so that the live Predictor's bucket is the artifact's.
+  x, labels, counts = proto.random_lists(B - 1, F, PIPE_MIN_DOCS, L,
+                                         seed=SEED + 43)
+  x_top, labels_top, _ = proto.random_lists(1, F, L, L, seed=SEED + 44)
+  x = np.concatenate([x_top, x])
+  labels = np.concatenate([labels_top, labels])
+  counts = np.concatenate([[L], counts])
+  starts = np.concatenate([[0], np.cumsum(counts)])
+  lists = [[{'float_features': x[d], 'relevance': labels[d:d + 1]}
+            for d in range(starts[i], starts[i + 1])] for i in range(B)]
+  files = {'request': [proto.make_elwc({}, docs) for docs in lists],
+           'singles': [proto.make_elwc({}, docs[:1]) for docs in lists],
+           'pointwise': [proto.make_example(docs[0]) for docs in lists]}
+  for k, records in files.items():
+    tfrecord.write_records(os.path.join(root, f'{k}.tfrecord'), records)
+  driver = _SERVE_DRIVER.format(
+      root=root, paths=paths,
+      **{k: os.path.join(root, f'{k}.tfrecord') for k in files})
+  proc = subprocess.run([sys.executable, '-c', driver], capture_output=True,
+                        text=True, timeout=600,
+                        cwd=os.path.dirname(os.path.abspath(__file__)))
+  if proc.returncode != 0:
+    _fail(f'export: serving the artifact failed:\n{proc.stderr[-3000:]}')
+  served = json.loads(proc.stdout.strip().splitlines()[-1])
+  if served.pop('models_imported'):
+    _fail('export: the serving process imported ranking_tpu_torch.models')
+  live = serving.Predictor(model, None, context, example,
+                           label_feature_name='relevance', device='cuda')
+  want = live.predict(files['request'])
+  got = {name: np.load(os.path.join(root, f'{name}_scores.npz'))
+         for name in paths}
+  mask = np.arange(want.shape[1])[None, :] < counts[:, None]
+  scale = float(np.abs(want[mask]).max())
+  f32, q8 = got['float32']['scores'], got['int8']['scores']
+  float_err = float(np.abs(f32[mask] - want[mask]).max())
+  if (f32.shape != want.shape
+      or not np.allclose(f32[mask], want[mask], rtol=1e-4, atol=1e-4 * scale)
+      or not (f32[~mask] == np.float32(layers.PADDING_LOGIT)).all()):
+    _fail(f'export: the float artifact\'s predict != the live Predictor\'s '
+          f'(max |diff| {float_err}, largest {scale})')
+  int8_err = float(np.abs(q8[mask] - f32[mask]).max())
+  fscale = float(np.abs(f32[mask]).max())
+  # The top document of each list: where int8 picks another one, the two
+  # must be a near-tie of the float scores (INT8_SWAP_GAP), in at most
+  # INT8_MAX_SWAPS lists; the gaps are reported.
+  top_f = np.argmax(np.where(mask, f32, -np.inf), axis=1)
+  top_q = np.argmax(np.where(mask, q8, -np.inf), axis=1)
+  rows = np.arange(B)
+  gaps = (f32[rows, top_f] - f32[rows, top_q])[top_f != top_q]
+  if (int8_err > INT8_TOL * fscale or (gaps > INT8_SWAP_GAP * fscale).any()
+      or len(gaps) > INT8_MAX_SWAPS):
+    _fail(f'export: int8 scores {int8_err} from the float ones (bound '
+          f'{INT8_TOL * fscale}); top documents swapped in {len(gaps)} lists '
+          f'(at most {INT8_MAX_SWAPS}) at float gaps {gaps.tolist()} (bound '
+          f'{INT8_SWAP_GAP * fscale})')
+  regress_err = {}
+  for name, z in got.items():
+    regress_err[name] = float(np.abs(z['reg'] - z['pred1'][:, 0]).max())
+    if not np.allclose(z['reg'], z['pred1'][:, 0], rtol=1e-4,
+                       atol=1e-4 * np.abs(z['pred1']).max()):
+      _fail(f'export {name}: regress != predict on lists of one '
+            f'({regress_err[name]})')
+  out = {'export_s': export_s, 'params_npz_bytes': sizes,
+         'float_max_abs_diff_vs_live': float_err,
+         'int8_max_abs_diff_vs_float': int8_err, 'float_largest': fscale,
+         'int8_top_swaps_float_gaps': gaps.tolist(),
+         'regress_max_abs_diff_vs_predict': regress_err,
+         'documents': int(counts.sum()), 'served': served}
+  _log(f'export: the flagship model exported on the CPU (buckets '
+       f'{EXPORT_BUCKETS}; float32 {export_s["float32"]:.2f} s, int8 '
+       f'{export_s["int8"]:.2f} s), params.npz {sizes["float32"]} / '
+       f'{sizes["int8"]} bytes; served on the card by a process that cannot '
+       f'import ranking_tpu_torch.models: {B} ELWCs ({int(counts.sum())} '
+       f'documents), float32 == live Predictor.predict within {float_err:.3g}'
+       f' (largest {scale:.3g}), int8 within {int8_err:.3g} of float32 '
+       f'(bound {INT8_TOL * fscale:.3g}), the same top document in '
+       f'{B - len(gaps)} of {B} lists (the others, at most '
+       f'{INT8_MAX_SWAPS}, swap a near-tie, float gaps '
+       f'{[round(float(g), 6) for g in gaps]}, bound '
+       f'{INT8_SWAP_GAP * fscale:.3g}); '
+       f'regress == predict on lists of one within '
+       f'{max(regress_err.values()):.3g}; request: ' + '; '.join(
+           f'{k} parse {v["parse_ms"]:.3f} ms, device {v["device_ms"]:.3f} '
+           f'ms by events, predict {v["predict_ms"]:.3f} ms'
+           for k, v in served.items()))
+  return out
+
+
+def _eval_phase(gen, model, eval_batches):
+  """Phase 19: evaluation and the serving artifact on the card."""
+  import shutil
+  import torch
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      '.scratch', 'chip_smoke_eval')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  try:
+    suite, card_logits = _suite_and_graph(model, eval_batches, gen)
+    query_ids = _query_id_eval(model, eval_batches, card_logits, root)
+    trec_numbers = _trec_eval(root)
+    exported = _export_phase(model, root)
+    torch.cuda.empty_cache()
+    return {'suite': suite, 'query_ids': query_ids, 'trec': trec_numbers,
+            'export': exported}
   finally:
     shutil.rmtree(root, ignore_errors=True)
 
@@ -3078,17 +3716,48 @@ def main():
   eval_batches = [dataset.flatten_examples(_make_batch(gen, B))
                   for _ in range(EVAL_BATCHES)]
   fns = _metric_fns()
+  made = []
+
+  class _Recorded(steps.GraphedEvalStep):
+    def __init__(self, *args, **kwargs):
+      super().__init__(*args, **kwargs)
+      made.append(self)
+
   cuda_sort.sorted_values_and_ranks.launches = 0
   predictor = serving.Predictor(model, device='cuda')
   served = [predictor.score_batch(r) for r in requests]
-  results = serving.evaluate_dataset(predictor.model, None, eval_batches,
-                                     metric_fns=fns, device='cuda')
+  result = {}
+  with mock.patch.object(steps, 'GraphedEvalStep', _Recorded):
+    eval_device = _kernel_counts(lambda: result.update(
+        metrics=serving.evaluate_dataset(predictor.model, None,
+                                         eval_batches, metric_fns=fns,
+                                         device='cuda')))
+  results = result['metrics']
   launches = cuda_sort.sorted_values_and_ranks.launches
   if launches == 0:
     _fail('the eval path never launched the sort kernel')
+  # The eval runs as one eager step, a capture and replays: the wrapper
+  # counts the eager step and the capture; the card runs the eager step
+  # and every replay, which torch.profiler's device events count.
+  graphed = made[0]
+  if graphed.captures != 1 or graphed.replays != EVAL_BATCHES - 1:
+    _fail(f'evaluate_dataset: {graphed.captures} captures, '
+          f'{graphed.replays} replays of its eval step')
+  card_launches = eval_device.get('rank_sort_kernel', 0)
+  expected = (launches + graphed.replayed_launches().get(
+      'sorted_values_and_ranks', 0) - graphed.captured_launches().get(
+          'sorted_values_and_ranks', 0))
+  if card_launches != expected:
+    _fail(f'evaluate_dataset: rank_sort_kernel ran {card_launches} times on '
+          f'the card; the wrapper counted {launches} (the eager step and the '
+          f'capture) and the graph replayed {graphed.replays} times: '
+          f'{expected}')
   _log(f'main path: served {[r.batch_size for r in requests]} lists, '
-       f'evaluated {EVAL_BATCHES} x {B} lists; sort kernel launches '
-       f'{launches} ({launches / EVAL_BATCHES:g} per eval step)')
+       f'evaluated {EVAL_BATCHES} x {B} lists (1 eager step, 1 capture, '
+       f'{graphed.replays} replays); sort kernel launches {launches} as the '
+       f'wrapper counts them, {card_launches} on the card by torch.profiler '
+       f'({card_launches / EVAL_BATCHES:g} per eval step), as the eager step '
+       'plus the capture\'s launches times the replays')
 
   for req, got in zip(requests, served):
     got = torch.from_numpy(got)
@@ -3216,6 +3885,13 @@ def main():
   if (token_launches['scatter_rows_multi'] == 0
       or token_device['scatter_rows_multi'] == 0):
     _fail('the ELWC token run never launched scatter_rows_multi')
+  # Phase 19: evaluation and the serving artifact; the sort's launches by
+  # the whole suite, eager and graphed, start from 0 here.
+  cuda_sort.sorted_values_and_ranks.launches = 0
+  eval_numbers = _eval_phase(gen, predictor.model, eval_batches)
+  eval_launches = cuda_sort.sorted_values_and_ranks.launches
+  if eval_launches == 0:
+    _fail('the evaluation phase never launched the sort kernel')
   timings = {
       'build_s': build_s, 'hgmma': hgmma,
       'fused': fused_times, **train_times,
@@ -3231,11 +3907,11 @@ def main():
       'eval_lists_per_s': B / eval_step_ms * 1e3,
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
       'kstep': kstep, 'pipeline': pipeline_numbers, 'elwc': elwc_numbers,
-      'card': card}
+      'eval': eval_numbers, 'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
-    # Phase 19 (optional): the kernels' resources and where the device
+    # Phase 20 (optional): the kernels' resources and where the device
     # time of an eval step, a serve request and the train steps goes.
     for source in sources:
       _log(f'ptxas {source}: {_ptxas_summary(build.library_path(source))}')
@@ -3263,7 +3939,12 @@ def main():
       'name': 'sorted_values_and_ranks', 'route': 'cuda',
       'source': 'ranking_tpu_torch/ops/cuda/csrc/sort.cu',
       'replaces': 'ranking_tpu/ops/pallas/sort.py:115',
-      'launches': launches, 'launches_lambdarank_path': rank_counts[0],
+      'launches': launches, 'launches_card': card_launches,
+      'launches_lambdarank_path': rank_counts[0],
+      'launches_eval_phase': eval_launches,
+      'eval_suite_sorts': {
+          'kernel': eval_numbers['suite']['kernel_sorts'],
+          'plain': eval_numbers['suite']['plain_sorts']},
       'max_abs_err': max_abs_err, 'check': 'bitwise',
       'ms': kernel_ms, 'eager_ms': sort_eager_ms['kernel'], 'plain_ms': plain_ms, 'bound_ms': bound_ms,
       'bound_by': bound_by, 'library_ms': library_ms}]

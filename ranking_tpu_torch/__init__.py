@@ -16,7 +16,13 @@ anything of ``ranking_tpu``. It holds these paths so far:
 * sparse embedding training: ``train.steps.make_sparse_train_step`` over an
   ``EmbeddingDNNScorer`` with ``LazyAdam`` or ``LazyAdagrad``, whose row
   writes into the tables and their moments are a CUDA C++ kernel
-  (``ops/cuda/csrc/rows.cu``).
+  (``ops/cuda/csrc/rows.cu``);
+* the training pipeline over LIBSVM and ELWC files, K steps a dispatch as
+  one CUDA graph, and ``Predictor.predict`` / ``regress`` on serialized
+  requests;
+* evaluation and serving artifacts: the reference's 13 metrics, the eval
+  step as one CUDA graph a batch shape, query-id and TREC-run evaluation,
+  and ``pipeline.export`` (``torch.export`` programs, int8 weights).
 
 Entry points run on the CUDA device unless the caller passes
 ``device='cpu'``; without CUDA they raise rather than carry on on the CPU.

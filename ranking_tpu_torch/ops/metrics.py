@@ -1,7 +1,8 @@
 """Ranking metrics as per-list functions on tensors.
 
-The port's copy of the NDCG and MRR parts of ``ranking_tpu/ops/metrics.py``
-(the reference's tensorflow_ranking/python/metrics_impl.py). Every metric
+The port's copy of ``ranking_tpu/ops/metrics.py`` (the reference's
+tensorflow_ranking/python/metrics_impl.py): the thirteen metrics of the
+reference's suite. Every metric
 is a frozen dataclass whose ``__call__`` returns ``(per_list_values [B, 1],
 per_list_weights [B, 1])``; ``metric_registry.MeanState`` streams their
 weighted mean.
@@ -10,6 +11,12 @@ Shared semantics: the input preparation (mask = valid label AND weight > 0;
 invalid predictions reset below the per-list minimum) and
 ``per_example_weights_to_per_list_weights`` with its batch-average
 fallback for lists with zero relevance.
+
+Every sort goes through ``list_ops.sort_by_scores``, so inside a
+``shared_sort_scope`` the suite shares its sort orders, and its 2-D float
+channels take the CUDA sort kernel on the card. The diversity metrics'
+``[B, L, subtopic]`` labels and the integer or boolean channels take the
+plain path, as the JAX package's dispatch rule sends them.
 """
 
 from __future__ import annotations
@@ -153,6 +160,104 @@ class MRRMetric(RankingMetric):
 
 
 @dataclasses.dataclass(frozen=True)
+class HitsMetric(RankingMetric):
+  """Hits@k: 1 if any relevant item is in the top k (metrics_impl.py:462)."""
+
+  def compute(self, labels, predictions, weights, mask):
+    sorted_labels, = list_ops.sort_by_scores(
+        predictions, [labels], topn=self.topn, mask=mask)
+    hits = torch.amax(_binary_relevance(sorted_labels), dim=1, keepdim=True)
+    per_list_weights = per_example_weights_to_per_list_weights(
+        weights, _binary_relevance(labels))
+    return hits, per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class ARPMetric(RankingMetric):
+  """Average relevance position (metrics_impl.py:509-536)."""
+
+  def __post_init__(self):
+    if self.topn is not None:
+      # The reference never exposes a cutoff on ARP; accepting one and
+      # ignoring it would be a silent no-op parameter.
+      raise ValueError('ARP has no topn cutoff (full-list metric)')
+
+  def compute(self, labels, predictions, weights, mask):
+    list_size = predictions.shape[1]
+    sorted_labels, sorted_weights = list_ops.sort_by_scores(
+        predictions, [labels, weights], topn=list_size, mask=mask)
+    weighted_labels = sorted_labels * sorted_weights
+    position = torch.arange(1, list_size + 1, dtype=torch.float32,
+                            device=labels.device)[None, :]
+    per_list_weights = torch.sum(weighted_labels, dim=1, keepdim=True)
+    per_list_arp = _div_no_nan(
+        torch.sum(position * weighted_labels, dim=1, keepdim=True),
+        per_list_weights)
+    return per_list_arp, per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class RecallMetric(RankingMetric):
+  """Recall@k (metrics_impl.py:539-561, helper :154-177)."""
+
+  def compute(self, labels, predictions, weights, mask):
+    sorted_labels, = list_ops.sort_by_scores(
+        predictions, [labels], topn=self.topn, mask=mask)
+    topn_positives = _binary_relevance(sorted_labels)
+    relevance = _binary_relevance(labels)
+    per_list_recall = _div_no_nan(
+        torch.sum(topn_positives, dim=1, keepdim=True),
+        torch.sum(relevance, dim=1, keepdim=True))
+    per_list_weights = per_example_weights_to_per_list_weights(
+        weights, relevance)
+    return per_list_recall, per_list_weights
+
+
+def _valid_topn(topn: Optional[int], mask: Tensor) -> Tensor:
+  """min(topn, valid items) per list, ``[B, 1]`` float32; topn None is the
+  list size."""
+  topn = mask.shape[1] if topn is None else topn
+  return torch.clamp(torch.sum(mask.to(torch.int32), dim=1, keepdim=True),
+                     max=topn).to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionMetric(RankingMetric):
+  """Precision@k with valid-topn clamping (metrics_impl.py:564-586)."""
+
+  def compute(self, labels, predictions, weights, mask):
+    sorted_labels, = list_ops.sort_by_scores(
+        predictions, [labels], topn=self.topn, mask=mask)
+    relevance_topn = _binary_relevance(sorted_labels)
+    per_list_precision = _div_no_nan(
+        torch.sum(relevance_topn, dim=1, keepdim=True),
+        _valid_topn(self.topn, mask))
+    per_list_weights = per_example_weights_to_per_list_weights(
+        weights, _binary_relevance(labels))
+    return per_list_precision, per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class MeanAveragePrecisionMetric(RankingMetric):
+  """MAP@k (metrics_impl.py:589-628)."""
+
+  def compute(self, labels, predictions, weights, mask):
+    relevance = _binary_relevance(labels)
+    sorted_relevance, sorted_weights = list_ops.sort_by_scores(
+        predictions, [relevance, weights], topn=self.topn, mask=mask)
+    relevant_counts = torch.cumsum(sorted_relevance, dim=1)
+    cutoffs = torch.cumsum(torch.ones_like(sorted_relevance), dim=1)
+    precisions = _div_no_nan(relevant_counts, cutoffs)
+    total_precision = torch.sum(
+        precisions * sorted_weights * sorted_relevance, dim=1, keepdim=True)
+    total_relevance = torch.sum(weights * relevance, dim=1, keepdim=True)
+    per_list_map = _div_no_nan(total_precision, total_relevance)
+    per_list_weights = per_example_weights_to_per_list_weights(
+        weights, relevance)
+    return per_list_map, per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
 class NDCGMetric(RankingMetric):
   """NDCG@k with configurable gain/discount (metrics_impl.py:631-670)."""
 
@@ -173,3 +278,172 @@ class NDCGMetric(RankingMetric):
     per_list_weights = per_example_weights_to_per_list_weights(
         weights, self.gain_fn(labels))
     return per_list_ndcg, per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class DCGMetric(RankingMetric):
+  """DCG@k normalized by the per-list weight (metrics_impl.py:673-705)."""
+
+  gain_fn: Callable[[Tensor], Tensor] = DEFAULT_GAIN_FN
+  rank_discount_fn: Callable[[Tensor], Tensor] = DEFAULT_RANK_DISCOUNT_FN
+
+  def compute(self, labels, predictions, weights, mask):
+    sorted_labels, sorted_weights = list_ops.sort_by_scores(
+        predictions, [labels, weights], topn=self.topn, mask=mask)
+    dcg = discounted_cumulative_gain(
+        sorted_labels, sorted_weights, self.gain_fn, self.rank_discount_fn)
+    per_list_weights = per_example_weights_to_per_list_weights(
+        weights, self.gain_fn(labels))
+    return _div_no_nan(dcg, per_list_weights), per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class OPAMetric(RankingMetric):
+  """Ordered pair accuracy (metrics_impl.py:708-743): no sort, ``[B, L, L]``
+  pairs."""
+
+  def __post_init__(self):
+    if self.topn is not None:
+      raise ValueError('OPA has no topn cutoff (all-pairs metric)')
+
+  def compute(self, labels, predictions, weights, mask):
+    valid_pair = mask[:, :, None] & mask[:, None, :]
+    pair_label_diff = labels[:, :, None] - labels[:, None, :]
+    pair_pred_diff = predictions[:, :, None] - predictions[:, None, :]
+    correct = ((pair_label_diff > 0).to(torch.float32)
+               * (pair_pred_diff > 0).to(torch.float32))
+    pair_weights = ((pair_label_diff > 0).to(torch.float32)
+                    * weights[:, :, None]
+                    * valid_pair.to(torch.float32))
+    per_list_weights = torch.sum(pair_weights, dim=(1, 2))[:, None]
+    per_list_opa = _div_no_nan(
+        torch.sum(correct * pair_weights, dim=(1, 2))[:, None],
+        per_list_weights)
+    return per_list_opa, per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class _DivRankingMetric(RankingMetric):
+  """Diversity metrics over ``[B, L, subtopic]`` labels
+  (metrics_impl.py:313)."""
+
+  def prepare(self, labels, predictions, weights, mask):
+    labels = torch.as_tensor(labels, dtype=torch.float32)
+    predictions = torch.as_tensor(predictions, dtype=torch.float32)
+    if labels.ndim != 3:
+      raise ValueError(
+          f'Diversity labels must be rank 3, got {tuple(labels.shape)}')
+    if mask is None:
+      mask = list_ops.is_label_valid(labels)
+    if mask.ndim == 3:
+      mask = torch.any(mask, dim=2)
+    predictions = torch.where(
+        mask, predictions,
+        -1e-6 + torch.amin(predictions, dim=1, keepdim=True))
+    labels = torch.where(mask[:, :, None], labels, 0.0)
+    weights = (1.0 if weights is None
+               else torch.as_tensor(weights, dtype=torch.float32))
+    example_weights = torch.ones_like(predictions) * weights
+    return labels, predictions, example_weights, mask
+
+  def _per_list_weights(self, weights, labels):
+    return per_example_weights_to_per_list_weights(
+        weights, torch.any(labels >= 1.0, dim=-1).to(torch.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionIAMetric(_DivRankingMetric):
+  """Intent-aware Precision@k (metrics_impl.py:746-782)."""
+
+  def compute(self, labels, predictions, weights, mask):
+    sorted_labels, = list_ops.sort_by_scores(
+        predictions, [labels], topn=self.topn, mask=mask)
+    relevance = torch.sum((sorted_labels >= 1.0).to(torch.float32), dim=-1)
+    num_subtopics = torch.sum(
+        torch.any(labels >= 1.0, dim=1, keepdim=True).to(torch.float32),
+        dim=-1)
+    per_list = _div_no_nan(
+        torch.sum(relevance, dim=1, keepdim=True),
+        torch.sum(_valid_topn(self.topn, mask) * num_subtopics,
+                  dim=1, keepdim=True))
+    return per_list, self._per_list_weights(weights, labels)
+
+
+@dataclasses.dataclass(frozen=True)
+class AlphaDCGMetric(_DivRankingMetric):
+  """alpha-DCG@k for diversification (metrics_impl.py:785-822)."""
+
+  alpha: float = 0.5
+  rank_discount_fn: Callable[[Tensor], Tensor] = DEFAULT_RANK_DISCOUNT_FN
+
+  def _gain_fn(self, labels: Tensor) -> Tensor:
+    # Subtopic gains decay by (1 - alpha)^(#docs already covering it).
+    cum_subtopics = torch.cumsum(labels, dim=1) - labels  # exclusive cumsum
+    return torch.sum(
+        labels * torch.pow(1.0 - self.alpha, cum_subtopics), dim=-1)
+
+  def compute(self, labels, predictions, weights, mask):
+    sorted_labels, sorted_weights = list_ops.sort_by_scores(
+        predictions, [labels, weights], topn=self.topn, mask=mask)
+    alpha_dcg = discounted_cumulative_gain(
+        sorted_labels, sorted_weights, self._gain_fn, self.rank_discount_fn)
+    per_list_weights = self._per_list_weights(weights, labels)
+    return _div_no_nan(alpha_dcg, per_list_weights), per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class BPrefMetric(RankingMetric):
+  """Binary preference; TREC-2005 or classic formula (metrics_impl.py:825)."""
+
+  use_trec_version: bool = True
+
+  def compute(self, labels, predictions, weights, mask):
+    relevance = _binary_relevance(labels)
+    irrelevance = mask.to(torch.float32) - relevance
+    total_relevance = torch.sum(relevance, dim=1, keepdim=True)
+    total_irrelevance = torch.sum(irrelevance, dim=1, keepdim=True)
+    sorted_relevance, sorted_irrelevance = list_ops.sort_by_scores(
+        predictions, [relevance, irrelevance], topn=self.topn, mask=mask)
+    numerator = torch.minimum(
+        torch.cumsum(sorted_irrelevance, dim=1), total_relevance)
+    denominator = (torch.minimum(total_irrelevance, total_relevance)
+                   if self.use_trec_version else total_relevance)
+    bpref = _div_no_nan(
+        torch.sum((1.0 - _div_no_nan(numerator, denominator))
+                  * sorted_relevance, dim=1, keepdim=True),
+        total_relevance)
+    per_list_weights = per_example_weights_to_per_list_weights(
+        weights, relevance)
+    return bpref, per_list_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class PWAMetric(RankingMetric):
+  """Position-weighted average rating; weights must be per-list [B, 1]
+  (metrics_impl.py:901-965)."""
+
+  topn: Optional[int] = 5
+
+  def compute(self, labels, predictions, weights, mask):
+    sorted_labels, sorted_mask = list_ops.sort_by_scores(
+        predictions, [labels, mask], topn=self.topn, mask=mask)
+    position_weights = 1.0 / torch.arange(
+        1, sorted_labels.shape[1] + 1, dtype=torch.float32,
+        device=labels.device)
+    masked_pw = sorted_mask.to(torch.float32) * position_weights[None, :]
+    pwa = _div_no_nan(
+        torch.sum(sorted_labels * masked_pw, dim=1, keepdim=True),
+        torch.sum(masked_pw, dim=1, keepdim=True))
+    return pwa, weights[:, :1]
+
+  def __call__(self, labels, predictions, weights=None, mask=None):
+    # The reference raises unless PWA weights are per-list [batch_size, 1]
+    # (metrics_impl.py:901-965): averaging per-example weights would
+    # diverge without a diagnostic. Checked before prepare broadcasts them.
+    if weights is not None:
+      shape = tuple(torch.as_tensor(weights).shape)
+      if len(shape) >= 2 and shape[-1] != 1:
+        raise ValueError(
+            f'PWA weights must be per-list [batch_size, 1] (got shape '
+            f'{shape})')
+    return super().__call__(labels, predictions, weights=weights, mask=mask)

@@ -7,7 +7,8 @@ C++ streaming loader or the Python stream), ``LibSVMDatasetBuilder``,
 pipeline owns the train state, the train step (K steps per dispatch, on
 CUDA as replays of one captured graph), the eval loop, checkpoint and
 resume, the plateau learning rate, early stopping, best tracking, the
-metrics log, TensorBoard scalars and the latest and best exports.
+metrics log, TensorBoard scalars and the latest and best exports. On
+CUDA the eval step is one captured graph a batch shape.
 
 It takes an ``nn.Module`` that already holds its weights: the port has no
 ``init(rng)``, so a run that should start from the JAX package's weights
@@ -267,16 +268,20 @@ class SimplePipeline:
     self._train_step = step_fn
     # steps_per_execution (keras/pipeline.py:287-289): K steps a dispatch.
     self._multi_step = steps.make_multi_step(step_fn, device=self.device)
-    self._eval_step = steps.make_eval_step(
-        self.metric_fns, loss_fn=self.loss_fn, device=self.device)
+    # On CUDA one captured eval step a batch shape, kept across the
+    # epochs of the run.
+    self._eval_step = steps.GraphedEvalStep(
+        steps.make_eval_step(self.metric_fns, loss_fn=self.loss_fn,
+                             device=self.device), self.device)
     return state
 
   # -- loops ---------------------------------------------------------------
 
   def _run_eval(self, state: state_lib.TrainState) -> Dict[str, float]:
     """One pass over the validation stream (at most ``validation_steps``
-    batches). Every batch passes its real row count as ``num_valid_rows``;
-    on one card no batch is padded. The streamed loss is ``val_loss``."""
+    batches), through the graphed eval step on CUDA. Every batch passes
+    its real row count as ``num_valid_rows``; on one card no batch is
+    padded. The streamed loss is ``val_loss``."""
     states = steps.init_metric_states(self.metric_fns, with_loss=True,
                                       device=self.device)
     feed = dataset.prefetch_to_device(self.dataset_builder.valid_batches(),

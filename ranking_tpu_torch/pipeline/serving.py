@@ -12,7 +12,7 @@ The port's copy of ``ranking_tpu/pipeline/serving.py``, the analog of
 
 Requests parse on the host through ``parsers.parse`` (the native decoder
 wherever it takes the specs). ``evaluate_dataset`` streams metrics over a
-batch stream. Query-id aggregated metrics are a later slice.
+batch stream, optionally also aggregated by query id.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from torch import nn
 
 from ranking_tpu_torch.data import parsers
 from ranking_tpu_torch.data.batch import RankingBatch
+from ranking_tpu_torch.ops import aggregated as agg_lib
 from ranking_tpu_torch.ops import metric_registry
 from ranking_tpu_torch.train import steps
 from ranking_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -129,11 +130,25 @@ def evaluate_dataset(
     state_dict: Optional[Mapping[str, Any]],
     batches: Iterable[RankingBatch],
     metric_fns: Optional[Mapping[str, Any]] = None,
+    query_id_feature: Optional[str] = None,
+    aggregated_metrics: Optional[Mapping[str, tuple]] = None,
+    predictions_csv: Optional[str] = None,
     device: DeviceLike = 'cuda',
 ):
-  """Streaming weighted-mean metrics over a ``RankingBatch`` stream.
+  """Standalone evaluation over a ``RankingBatch`` stream.
 
-  The default suite is NDCG@5 and MRR. Returns ``{name: float}``.
+  Streams weighted-mean metrics (the pipeline's eval loop, usable without
+  a pipeline; the default suite is NDCG@5 and MRR), and, when
+  ``query_id_feature`` names a context feature, cross-batch aggregated
+  metrics grouped by query id (``aggregated_metrics``: display name ->
+  (metric key, topn); default MRR and NDCG@5) and an optional predictions
+  CSV: the TFR-BERT aggregated evaluation (tfrbert_task.py:238-344). The
+  query id is taken out of the model's context: it is never a model
+  input.
+
+  On CUDA the batches run through ``steps.GraphedEvalStep``, one captured
+  eval step a batch shape. Returns ``{name: float}``, the aggregated
+  metrics prefixed ``'agg/'``.
   """
   device = resolve_device(device)
   model = _place(model, state_dict, device)
@@ -144,8 +159,40 @@ def evaluate_dataset(
         'mrr': metric_registry.make_ranking_metric_fn(
             metric_registry.RankingMetricKey.MRR),
     }
-  eval_step = steps.make_eval_step(metric_fns, device=device)
+  eval_step = steps.GraphedEvalStep(
+      steps.make_eval_step(metric_fns, device=device), device)
   states = steps.init_metric_states(metric_fns, device=device)
+  acc = agg_lib.PredictionAccumulator() if query_id_feature else None
   for batch in batches:
-    states, _ = eval_step(model, batch, states)
-  return {k: float(v) for k, v in steps.metric_results(states).items()}
+    model_batch = batch
+    if acc is not None:
+      if query_id_feature not in batch.context:
+        raise ValueError(
+            f'query_id_feature {query_id_feature!r} not in batch context '
+            f'(features: {sorted(batch.context)})')
+      context = {k: v for k, v in batch.context.items()
+                 if k != query_id_feature}
+      model_batch = batch.replace(context=context)
+    states, logits = eval_step(model, model_batch, states)
+    if acc is not None:
+      if isinstance(logits, dict):
+        raise ValueError(
+            'aggregated metrics need single-task logits; evaluate one '
+            "task at a time (wrap the model to return that task's "
+            f'logits): got tasks {sorted(logits)}')
+      acc.add_batch(batch.context[query_id_feature].cpu().numpy().reshape(-1),
+                    batch.labels.cpu().numpy(), logits.cpu().numpy(),
+                    batch.mask.cpu().numpy())
+  results = steps.metric_results(states)
+  out = (dict(zip(results, torch.stack(list(results.values())).tolist()))
+         if results else {})
+  if acc is not None:
+    specs = aggregated_metrics or {
+        'mrr': (metric_registry.RankingMetricKey.MRR, None),
+        'ndcg@5': (metric_registry.RankingMetricKey.NDCG, 5),
+    }
+    for name, value in acc.compute(specs, device=device).items():
+      out[f'agg/{name}'] = value
+    if predictions_csv:
+      acc.dump_csv(predictions_csv)
+  return out

@@ -7,7 +7,8 @@ The port's copy of ``ranking_tpu/train/steps.py``:
   update, in place on ``state.model`` and ``state.optimizer``; the
   generator feeds dropout and the loss's tie shuffles;
 * ``eval_step(model, batch, metric_states) -> (metric_states, logits)``:
-  forward in eval mode, every metric streamed into a ``MeanState``;
+  forward in eval mode, every metric streamed into a ``MeanState``; on
+  CUDA ``GraphedEvalStep`` replays it as one CUDA graph a batch shape;
 * the sparse train step (``make_sparse_train_step``), whose embedding
   gradients exist only for the rows a batch touched.
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import itertools
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
-                    Tuple)
+                    Tuple, Union)
 
 import torch
 
@@ -307,6 +308,16 @@ def _signature(batch: RankingBatch) -> tuple:
           tuple((tuple(t.shape), t.dtype) for t in _leaves(batch)))
 
 
+def _clone(batch: RankingBatch) -> RankingBatch:
+  """A copy of every tensor of a batch: the static inputs of a graph."""
+  return RankingBatch(
+      context={n: v.clone() for n, v in batch.context.items()},
+      examples={n: v.clone() for n, v in batch.examples.items()},
+      labels=({n: v.clone() for n, v in batch.labels.items()}
+              if isinstance(batch.labels, dict) else batch.labels.clone()),
+      mask=batch.mask.clone())
+
+
 def _tensors(tree) -> Iterator[Tensor]:
   if torch.is_tensor(tree):
     yield tree
@@ -396,12 +407,7 @@ class GraphedSteps:
     return state, row
 
   def _capture(self, state, batch, generator):
-    self._static_batch = RankingBatch(
-        context={n: v.clone() for n, v in batch.context.items()},
-        examples={n: v.clone() for n, v in batch.examples.items()},
-        labels=({n: v.clone() for n, v in batch.labels.items()}
-                if isinstance(batch.labels, dict) else batch.labels.clone()),
-        mask=batch.mask.clone())
+    self._static_batch = _clone(batch)
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
       graph.register_generator_state(generator)
@@ -508,12 +514,13 @@ def make_eval_step(
   @torch.no_grad()
   def eval_step(model, batch: RankingBatch,
                 metric_states: Dict[str, MeanState],
-                num_valid_rows: Optional[int] = None):
-    """``num_valid_rows``: rows >= this index are padding
-    (RankingBatch.pad_to) and get metric weight 0. An all-invalid list is
-    not weightless in the reference's metric semantics (NDCG gives it
-    value 0, weight 1), so padded rows would otherwise bias every
-    unweighted metric down. None = every row is real data."""
+                num_valid_rows: Union[int, Tensor, None] = None):
+    """``num_valid_rows`` (an int or a 0-d integer tensor on ``device``):
+    rows >= this index are padding (RankingBatch.pad_to) and get metric
+    weight 0. An all-invalid list is not weightless in the reference's
+    metric semantics (NDCG gives it value 0, weight 1), so padded rows
+    would otherwise bias every unweighted metric down. None = every row is
+    real data."""
     batch = restore_flat_examples(batch.to(device))
     logits = model(batch.context, batch.examples, batch.mask, training=False)
     # One shared sort per (scores, mask) across the metric suite, plus
@@ -538,6 +545,143 @@ def make_eval_step(
     return out, logits
 
   return eval_step
+
+
+class GraphedEvalStep:
+  """The eval step on CUDA as one CUDA graph for each batch signature.
+
+  The eval counterpart of ``GraphedSteps``, and of the JAX package's one
+  jitted eval step. ``__call__`` has the eval step's signature and
+  results. The first call with a batch signature (names, shapes, dtypes)
+  runs the eager step on a side stream, as capture requires; the next one
+  captures the step, reading static copies of the batch, of
+  ``num_valid_rows`` (a device scalar: a Python int would be frozen into
+  the graph; None is the batch size, which weighs every row by 1, bit for
+  bit the unmasked weights) and of the metric states, and every later one
+  copies its batch into those buffers and replays the graph. Every
+  distinct signature is captured once (bucketed list sizes give one graph
+  a bucket, as jit compiles once a shape); ``captures`` counts them. The
+  graphs are bound to the model's parameters and buffers where they lie:
+  another model, or a tensor of it that moved, drops them and their memory
+  pool.
+
+  The graph reads and writes the metric states in its own buffer, in
+  place: each call copies the states it is given into the buffer, and
+  returns a copy of the buffer after the replay, so that what a caller
+  holds is never overwritten. The logits come back as a copy too. Replays
+  equal the eager step bit for bit.
+
+  The kernel wrappers count their launches where they run, and in a graph
+  that is once, at capture: ``captured_launches()`` sums what the captures
+  recorded, ``replayed_launches()`` what the replays ran (each graph's
+  captured launches times its replays), so that launches on the card =
+  wrapper counts - captured + replayed. A failed capture raises.
+
+  On the CPU the eager step runs.
+  """
+
+  def __init__(self, eval_step: Callable[..., Tuple[Dict[str, MeanState],
+                                                   Any]],
+               device: DeviceLike = 'cuda'):
+    self.eval_step = eval_step
+    self.device = resolve_device(device)
+    self.graphs: Dict[tuple, Dict[str, Any]] = {}
+    self.captures = 0
+    self.replays = 0
+    self._warm = set()
+    # The model and the addresses of its tensors that the graphs read; the
+    # model is held so that its id is not reused.
+    self._model = self._addresses = None
+    self._pool = None   # one memory pool for all the live graphs
+
+  def _capture(self, model, batch: RankingBatch, metric_states):
+    names = list(metric_states)
+    entry = {
+        'names': names,
+        'batch': _clone(batch),
+        'rows': torch.zeros((), dtype=torch.int64, device=self.device),
+        'buf': torch.zeros((len(names), 2), dtype=torch.float32,
+                           device=self.device),
+        'replays': 0}
+    buf = entry['buf']
+    static_states = {n: MeanState(buf[i, 0], buf[i, 1])
+                     for i, n in enumerate(names)}
+    graph = torch.cuda.CUDAGraph()
+    before = kernel_launch_counts()
+    try:
+      with torch.cuda.graph(graph, pool=self._pool):
+        out, logits = self.eval_step(model, entry['batch'], static_states,
+                                     num_valid_rows=entry['rows'])
+        buf.copy_(torch.stack(
+            (torch.stack([out[n].total for n in names]),
+             torch.stack([out[n].count for n in names])), dim=1))
+    except Exception as e:
+      raise RuntimeError(
+          f'capturing the eval step in a CUDA graph failed: {e}') from e
+    after = kernel_launch_counts()
+    entry['captured_launches'] = {n: after[n] - before[n] for n in after
+                                  if after[n] != before[n]}
+    entry['graph'], entry['logits'] = graph, logits
+    if self._pool is None:
+      self._pool = graph.pool()
+    self.captures += 1
+    return entry
+
+  def __call__(self, model, batch: RankingBatch,
+               metric_states: Dict[str, MeanState],
+               num_valid_rows: Optional[int] = None):
+    if self.device.type != 'cuda':
+      return self.eval_step(model, batch, metric_states,
+                            num_valid_rows=num_valid_rows)
+    addresses = tuple(t.data_ptr() for t in itertools.chain(
+        model.parameters(), model.buffers()))
+    if model is not self._model or addresses != self._addresses:
+      self.graphs, self._warm, self._pool = {}, set(), None
+      self._model, self._addresses = model, addresses
+    batch = batch.to(self.device)
+    key = (_signature(batch), tuple(metric_states))
+    entry = self.graphs.get(key)
+    if entry is None and key not in self._warm:
+      side = torch.cuda.Stream()
+      side.wait_stream(torch.cuda.current_stream())
+      with torch.cuda.stream(side):
+        out = self.eval_step(model, batch, metric_states,
+                             num_valid_rows=num_valid_rows)
+      torch.cuda.current_stream().wait_stream(side)
+      self._warm.add(key)
+      return out
+    if entry is None:
+      entry = self.graphs[key] = self._capture(model, batch, metric_states)
+    for dst, src in zip(_leaves(entry['batch']), _leaves(batch)):
+      dst.copy_(src)
+    entry['rows'].fill_(batch.batch_size if num_valid_rows is None
+                        else num_valid_rows)
+    names, buf = entry['names'], entry['buf']
+    buf.copy_(torch.stack(
+        (torch.stack([metric_states[n].total for n in names]),
+         torch.stack([metric_states[n].count for n in names])), dim=1))
+    entry['graph'].replay()
+    entry['replays'] += 1
+    self.replays += 1
+    held = buf.clone()
+    return ({n: MeanState(held[i, 0], held[i, 1])
+             for i, n in enumerate(names)}, entry['logits'].clone())
+
+  def captured_launches(self) -> Dict[str, int]:
+    """What the captures recorded, by wrapper name, over all graphs."""
+    out: Dict[str, int] = {}
+    for entry in self.graphs.values():
+      for n, c in entry['captured_launches'].items():
+        out[n] = out.get(n, 0) + c
+    return out
+
+  def replayed_launches(self) -> Dict[str, int]:
+    """What the replays launched on the card, by wrapper name."""
+    out: Dict[str, int] = {}
+    for entry in self.graphs.values():
+      for n, c in entry['captured_launches'].items():
+        out[n] = out.get(n, 0) + c * entry['replays']
+    return out
 
 
 def init_metric_states(metric_fns: Mapping[str, MetricFn],

@@ -21,6 +21,7 @@ import contextlib
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ranking_tpu_torch.ops.cuda import sort as cuda_sort
@@ -28,6 +29,12 @@ from ranking_tpu_torch.ops.cuda import sort as cuda_sort
 Tensor = torch.Tensor
 
 _SORT_SCOPE = threading.local()
+
+# The reference's padding values of a densified ragged list
+# (tensorflow_ranking/python/utils.py:421).
+PADDING_LABEL = -1.0
+PADDING_PREDICTION = -1e6
+PADDING_WEIGHT = 0.0
 
 
 @contextlib.contextmanager
@@ -229,6 +236,38 @@ def reshape_to_2d(tensor: Tensor) -> Tensor:
   while tensor.ndim < 2:
     tensor = tensor[..., None]
   return tensor
+
+
+def ragged_to_dense(
+    list_of_labels: Sequence[Sequence[float]],
+    list_of_predictions: Optional[Sequence[Sequence[float]]] = None,
+    list_of_weights: Optional[Sequence[Sequence[float]]] = None,
+    list_size: Optional[int] = None,
+) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor], Tensor]:
+  """Densifies host-side variable-length lists to padded CPU tensors.
+
+  Returns ``(labels, predictions, weights, mask)``, each ``[B, size]``;
+  ``size`` is ``list_size`` or the longest list, and longer lists are cut.
+  Padding is the reference's: label -1, prediction -1e6, weight 0.
+  """
+  lengths = [len(row) for row in list_of_labels]
+  size = list_size or (max(lengths) if lengths else 0)
+
+  def _pad(rows, fill):
+    out = np.full((len(rows), size), fill, dtype=np.float32)
+    for i, row in enumerate(rows):
+      n = min(len(row), size)
+      out[i, :n] = np.asarray(row, dtype=np.float32)[:n]
+    return torch.from_numpy(out)
+
+  labels = _pad(list_of_labels, PADDING_LABEL)
+  predictions = (_pad(list_of_predictions, PADDING_PREDICTION)
+                 if list_of_predictions is not None else None)
+  weights = (_pad(list_of_weights, PADDING_WEIGHT)
+             if list_of_weights is not None else None)
+  mask = torch.from_numpy(
+      np.arange(size)[None, :] < np.asarray(lengths)[:, None])
+  return labels, predictions, weights, mask
 
 
 def parse_keys_and_weights(key: str) -> Dict[str, float]:

@@ -474,3 +474,118 @@ def test_update_rows_of_a_3d_table_launch_the_kernel(dev, kind):
   assert not torch.equal(kt['t'], table)
   for name in ks['t']:
     assert torch.equal(ks['t'][name], ps['t'][name])
+
+
+# --- the eval step as one CUDA graph ------------------------------------------
+
+
+def _suite():
+  """The 13 metric keys; the diversity metrics over synthetic subtopics of
+  the graded labels (a document of grade g covers subtopics 1..g)."""
+  from ranking_tpu_torch.ops import metric_registry as registry
+  fns = {}
+  for key in registry.RankingMetricKey.all_keys():
+    fn = registry.make_ranking_metric_fn(
+        key, topn=None if key in ('arp', 'ordered_pair_accuracy') else 5)
+    if key in ('alpha_dcg', 'precision_ia'):
+      def fn(labels, logits, features=None, inner=fn):
+        grades = torch.arange(1, 4, dtype=torch.float32, device=labels.device)
+        sub = (labels[..., None] >= grades).to(torch.float32)
+        return inner(torch.where(labels[..., None] >= 0, sub, -1.0), logits)
+    fns[key] = fn
+  return fns
+
+
+def test_graphed_eval_step_equals_eager_bitwise(dev):
+  """Replays of the captured eval step == the eager step bit for bit: the
+  states of every metric and the val loss, and the logits; a padded batch
+  (num_valid_rows), zeroed states after a pass, and a second batch shape
+  (a second capture)."""
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.models import scorers
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import steps
+  gen = torch.Generator().manual_seed(5)
+  model = scorers.RankingModel(scorers.DNNScorer((64, 32), in_features=12,
+                                                 generator=gen),
+                               transform_name='log1p').to(dev)
+
+  def batch(b, l):
+    labels = torch.randint(-1, 5, (b, l), generator=gen).float()
+    x = torch.randn(b, l, 12, generator=gen) * 3
+    return batch_lib.batch_from_labels(labels, examples={'x': x}).to(dev)
+
+  fns = _suite()
+  eager = steps.make_eval_step(
+      fns, loss_fn=loss_registry.make_loss_fn('softmax_loss'), device=dev)
+  graphed = steps.GraphedEvalStep(eager, dev)
+  batches = [(batch(16, 40), None) for _ in range(3)] + [
+      (batch(16, 40), 11), (batch(16, 24), None), (batch(16, 24), 9)]
+  for _ in range(2):
+    es = steps.init_metric_states(fns, with_loss=True, device=dev)
+    gs = steps.init_metric_states(fns, with_loss=True, device=dev)
+    for b, rows in batches:
+      es, el = eager(model, b, es, num_valid_rows=rows)
+      gs, gl = graphed(model, b, gs, num_valid_rows=rows)
+      assert torch.equal(el, gl)
+      for name in es:
+        assert torch.equal(es[name].total, gs[name].total), name
+        assert torch.equal(es[name].count, gs[name].count), name
+  assert graphed.captures == 2 and graphed.replays == 2 * 6 - 2
+  captured = graphed.captured_launches()['sorted_values_and_ranks']
+  assert captured > 0
+  assert graphed.replayed_launches()['sorted_values_and_ranks'] == (
+      graphed.replays * captured // 2)
+
+
+def test_graphed_eval_step_follows_new_parameters_and_models(dev):
+  """Parameters loaded at new addresses (``assign=True``) and then another
+  model drop the graphs and their memory pool: the step warms up and
+  captures anew, and its replays equal the eager step bit for bit on the
+  new weights."""
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.models import scorers
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import steps
+  gen = torch.Generator().manual_seed(6)
+
+  def model():
+    return scorers.RankingModel(
+        scorers.DNNScorer((64, 32), in_features=12, generator=gen),
+        transform_name='log1p').to(dev)
+
+  def batch():
+    labels = torch.randint(-1, 5, (16, 40), generator=gen).float()
+    x = torch.randn(16, 40, 12, generator=gen) * 3
+    return batch_lib.batch_from_labels(labels, examples={'x': x}).to(dev)
+
+  fns = _suite()
+  eager = steps.make_eval_step(
+      fns, loss_fn=loss_registry.make_loss_fn('softmax_loss'), device=dev)
+  graphed = steps.GraphedEvalStep(eager, dev)
+  batches = [batch() for _ in range(4)]
+  first = model()
+
+  def run(m):
+    es = steps.init_metric_states(fns, with_loss=True, device=dev)
+    gs = steps.init_metric_states(fns, with_loss=True, device=dev)
+    for b in batches:
+      es, el = eager(m, b, es)
+      gs, gl = graphed(m, b, gs)
+      assert torch.equal(el, gl)
+      for name in es:
+        assert torch.equal(es[name].total, gs[name].total), name
+        assert torch.equal(es[name].count, gs[name].count), name
+
+  run(first)
+  assert graphed.captures == 1 and graphed.replays == 3
+  pool = graphed._pool
+  fresh = {k: v.clone() + 0.25 * torch.randn(v.shape, generator=gen).to(dev)
+           if v.is_floating_point() else v.clone()
+           for k, v in model().state_dict().items()}
+  first.load_state_dict(fresh, assign=True)
+  run(first)
+  assert graphed.captures == 2 and graphed.replays == 6
+  assert graphed._pool != pool
+  run(model())
+  assert graphed.captures == 3 and graphed.replays == 9

@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from ranking_tpu_torch.data import dataset
+from ranking_tpu_torch.data import trec
 from ranking_tpu_torch.models import scorers
+from ranking_tpu_torch.ops import aggregated
+from ranking_tpu_torch.pipeline import export
 from ranking_tpu_torch.pipeline import hparams as hparams_lib
 from ranking_tpu_torch.pipeline import pipeline
 from ranking_tpu_torch.pipeline import serving
@@ -30,7 +33,8 @@ for mod in pkgutil.walk_packages(ranking_tpu_torch.__path__,
   importlib.import_module(mod.name)
 for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
              'data.native', 'data.libsvm', 'data.tfrecord', 'data.proto',
-             'data.parsers', 'data.dataset', 'utils.tensorboard'):
+             'data.parsers', 'data.dataset', 'utils.tensorboard',
+             'data.trec', 'ops.aggregated', 'pipeline.export'):
   assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')
@@ -108,6 +112,14 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
       validation_steps=1, learning_rate=0.1, loss='softmax_loss')
   with pytest.raises(RuntimeError, match="device='cpu'"):
     pipeline.SimplePipeline(model, None, hparams)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    steps.GraphedEvalStep(lambda *a, **k: None)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    trec.evaluate_run('unused', 'unused')
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    aggregated.PredictionAccumulator().compute({})
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    export.load_predictor('unused')
   serving.Predictor(model, device='cpu')  # the CPU when asked
   steps.make_multi_step(lambda *a, **k: None, device='cpu')
   pipeline.SimplePipeline(model, None, hparams, device='cpu')
