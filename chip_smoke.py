@@ -2,11 +2,13 @@
 """Drives the PyTorch port's serving, eval, training and sparse embedding
 training paths, its K-step dispatch, its training pipeline, its ELWC
 path (serialized protos through the native loader, and serving requests),
-and its evaluation and serving artifact (the whole metric suite, the eval
+its evaluation and serving artifact (the whole metric suite, the eval
 step as a CUDA graph, query-id and TREC-run evaluation, ``export_predictor``
-/ ``load_predictor``) on one CUDA card.
+/ ``load_predictor``), and the whole loss zoo and multi-task training on
+one CUDA card.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --anchor-seeds N
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -20,7 +22,8 @@ Phases (any failure exits non-zero before the last line is printed):
    on the card, required bitwise equal (ranks and sorted values), at the
    flagship shape (B=128, L=200, K=2, topn 1/5/10/200), with score ties,
    an all-invalid row and -inf scores, L=37, L at the top of the kernel's
-   domain, and B=1; and at L = 1, 31, 32, 33, 257 with K = 1 and 3 and topn
+   domain, B=1, and B=1,024 lists of tied labels with K = 1 (phase 21's
+   Gumbel ideal-DCG sort); and at L = 1, 31, 32, 33, 257 with K = 1 and 3 and topn
    1 and L, with ties, -0.0 beside +0.0, -inf scores and an all-invalid
    row (the edges of the kernel's keys and of its threads per item). Then
    the five fused masked-BN functions (``ops/cuda/fused_bn.py``) against
@@ -38,8 +41,10 @@ Phases (any failure exits non-zero before the last line is printed):
    lambda modes at B=128, L=200 with ragged lists, graded labels and item
    weights, and the edges listed at ``_pairwise_cases``, among them ranks
    that are not whole numbers in [1, L] (the kernels' per-pair formula), a
-   list of one item, lists at the edges of the host's row tiles and the
-   longest list with discount tables and the shortest without (the count of
+   list of one item, lists at the edges of the host's row tiles, the
+   longest list with discount tables and the shortest without, and phase
+   21's B = 1,024 Gumbel-sampled lists of L = 200 (one row tile a list)
+   under the Yeti DCG weight and three other recipes (the count of
    non-zero pair weights must be equal, the sums and ``dlogits`` within
    ``PAIR_TOL`` of the output's largest value); and the whole
    ``PairwiseLogisticLoss`` with the NDCG lambda weight against autograd
@@ -211,15 +216,50 @@ Phases (any failure exits non-zero before the last line is printed):
 20. with ``--profile`` only: every kernel's registers and spills from
    ``ptxas -v``, and ``torch.profiler``'s device time, operation count and
    busiest kernels of one eval step, one B=128 serve request and one train
-   step of each loss and of the sparse step.
+   step of each loss and of the sparse step;
+21. the rest of the loss zoo and multi-task training (run after phase 19):
+   (a) for softmax and each of the 20 other keys (``ZOO_KEYS``; heads of
+   ``ZOO_HEADS`` units, binary click labels for ``ZOO_BINARY``), the
+   flagship train step (phase 7's recipe, fused tower, Adam 1e-3): the
+   loss and its logit gradient on the card against a float64 recompute on
+   the CPU of the same logits (``ZOO_VALUE_TOL``, ``ZOO_GRAD_TOL``), the
+   first step against the same step with rows 1-8 switched off (as phases
+   7 and 10; a step outside OP_TOL is held, with rows 1 and 7-8 alone, and
+   against float64 steps of each float32 step's own ReLU gates and loss
+   gradient to ``ANCHOR_TOL``), then K = 10 graph replays timed by CUDA
+   events, with the
+   peak device memory and the launches a step that the capture recorded;
+   row 1 on the card by ``torch.profiler`` in one step of
+   ``ZOO_SORT_KEYS`` (equal to the wrapper's count and the capture's);
+   (b) 10 replays == 10 eager steps bit for bit for Gumbel approx NDCG and
+   ListMLE with a CUDA generator and approx NDCG without one; (c) over
+   ELWC files in phase 18's shape that also carry a click a document,
+   ``SimplePipeline.train_and_validate`` with ``loss='approx_ndcg_loss'``
+   (the scale-invariant recipe), one epoch at K = 10: lists/s over the
+   replay-only window, then a second run under ``torch.profiler`` whose
+   kernels on the card equal the wrappers' eager calls plus captured x
+   replays; (d) ``MultiTaskPipeline`` over ``MultiLabelDatasetBuilder``
+   with ``MultiTaskScorer(('relevance', 'click'), body=DNNScorer(
+   1024-512-256, output_units=2))``, softmax and sigmoid cross-entropy
+   weighted 1 and 0.3, one epoch at K = 10: one capture, the
+   ``task/ndcg@k`` suite, and the pipeline's graphed eval == the eager
+   step it wraps bit for bit, its history == the eager results.
+
+With ``--anchor-seeds N`` the script builds the kernels (phases 1-2) and
+then only runs phase 21a's first-step checks of every key, each with the
+float64 steps of ``_hold_first_step``'s anchor whether or not it is needed,
+for the default run's models and batches and N - 1 other seeds, and prints
+one ``{"anchor_sweep": ...}`` line of the readings. It exits non-zero if a
+check failed on any seed.
 
 Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
-line (each kernel also with its launches in phases 17 and 18, as its
+line (each kernel also with its launches in phases 17, 18 and 21, as its
 wrapper counts them and on the card in the profiled runs, and per replay
 of phase 16's graphs), and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -258,6 +298,13 @@ FUSED_TOL = {'float32': {'stored': 1e-5, 'summed': 1e-5},
 # whole contribution. So the error is held in the Frobenius norm, and the
 # largest single entry only loosely.
 OP_TOL_NORM, OP_TOL_MAX = 2e-3, 5e-2
+# A float32 first step against the float64 step of its own ReLU gates and
+# loss gradient (``_hold_first_step``'s anchor), in the norm and at the
+# largest entry: no gate differs, so only rounding remains, that of the
+# fused functions held to FUSED_TOL (1e-5) each, chained over three
+# layers forward and back; ten times FUSED_TOL. 63 readings (21 keys, 3
+# seeds) measured 8.5e-6 at most on an H100.
+ANCHOR_TOL = 1e-4
 # The fused pairwise sums against their plain versions: the count of
 # non-zero pair weights exactly; the two float sums and dlogits as a share
 # of the output's largest value (float32 sums of up to L^2 terms in another
@@ -749,11 +796,12 @@ def _check_fused_op(gen):
          f'within {worst_norm:.3g} in norm, {worst_max:.3g} at most')
 
 
-def _train_model(gen, hidden=HIDDEN, use_batch_norm=True):
+def _train_model(gen, hidden=HIDDEN, use_batch_norm=True, output_units=1):
   from ranking_tpu_torch.models import scorers
   return scorers.RankingModel(
       scorers.DNNScorer(hidden, in_features=F, dropout=0.0, input_grad=False,
-                        use_batch_norm=use_batch_norm, generator=gen),
+                        use_batch_norm=use_batch_norm, generator=gen,
+                        output_units=output_units),
       transform_name='log1p')
 
 
@@ -787,51 +835,199 @@ def _reset_all_launches():
   cuda_sort.sorted_values_and_ranks.launches = 0
 
 
-def _hold_first_step(what, step, twin, batch, first_loss, first_grads,
-                     first_stats):
-  """The same first step through the plain versions of rows 2-8, on the
-  card, from a copy of the untrained model: loss, gradients and running
-  statistics against the kernels' step."""
+def _zero_in_theory(model, shift_invariant):
+  """Names of the parameters whose gradient is zero in theory: the biases
+  in front of a batch norm (the norm takes the batch mean out), and with
+  ``shift_invariant`` (a loss that adding one number to every logit does
+  not change) the output bias of a one-logit head."""
+  tower = model.scorer.tower
+  dense = [f'scorer.tower.dense.{i}.bias' for i in range(len(tower.dense))]
+  names = set(dense[:-1]) if tower.bn else set()
+  if shift_invariant and tower.dense[-1].out_features == 1:
+    names.add(dense[-1])
+  return names
+
+
+def _zero_tol(model, loss_fn, batch):
+  """The rounding bound of a gradient that is zero in theory: a float32
+  sum over the N_ROWS rows of terms of about the largest logit gradient,
+  N_ROWS * 2^-23 of it (at least 1e-6). The logit gradient from a
+  train-mode forward of a copy of ``model`` through the plain versions."""
+  import contextlib
+  import copy
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.train import steps
+  model = copy.deepcopy(model).to('cuda')
+  b = steps.restore_flat_examples(batch.to('cuda'))
+  with contextlib.ExitStack() as stack:
+    stack.enter_context(fused_bn.plain_versions())
+    stack.enter_context(pairwise.plain_versions())
+    logits = model(b.context, b.examples, b.mask, training=True).detach()
+    logits.requires_grad_()
+    loss_fn(b.labels, logits).backward()
+  return max(1e-6, N_ROWS * 2.0 ** -23 * logits.grad.abs().max().item())
+
+
+def _grad_errors(grads, want, zero_names, zero_tol):
+  """(worst relative error in the Frobenius norm over the parameters, the
+  parameter, worst entry as a share of its parameter's largest, the
+  parameter) of ``grads`` against ``want``. A parameter of ``zero_names``
+  is zero in theory: both sides must be within ``zero_tol`` of 0 (else the
+  third value is inf). Every other parameter is held relatively; one whose
+  ``want`` is exactly 0 must be exactly 0."""
+  worst_norm = worst_max = 0.0
+  worst_name = worst_max_name = None
+  for k, w in want.items():
+    g = grads[k].to(w.dtype)
+    if k in zero_names:
+      if max(g.abs().max().item(), w.abs().max().item()) > zero_tol:
+        return worst_norm, f'{k} (zero in theory)', math.inf, k
+      continue
+    scale = w.abs().max().item()
+    if scale == 0.0:
+      if g.abs().max().item() != 0.0:
+        return worst_norm, f'{k} (exactly 0)', math.inf, k
+      continue
+    norm = ((g - w).norm() / w.norm()).item()
+    if norm > worst_norm:
+      worst_name = f'{k} (largest entry {scale:.3g})'
+    worst_norm = max(worst_norm, norm)
+    entry = (g - w).abs().max().item() / scale
+    if entry > worst_max:
+      worst_max_name = k
+    worst_max = max(worst_max, entry)
+  return worst_norm, worst_name, worst_max, worst_max_name
+
+
+def _plain_step(step, model, batch, plain_sort, plain_pairwise=True,
+                record=False):
+  """The first step from ``model`` with the tower's kernels (rows 2-6)
+  switched to their plain versions, and rows 7-8 unless not
+  ``plain_pairwise``, and row 1 with ``plain_sort``. Returns (metrics,
+  gradients, running statistics, launches of rows 1 and 7-8, and with
+  ``record`` what ``_recording_tower`` recorded, else None)."""
   import contextlib
   from ranking_tpu_torch.ops.cuda import fused_bn
   from ranking_tpu_torch.ops.cuda import pairwise
   from ranking_tpu_torch.train import state as state_lib
-  twin_state = state_lib.create_train_state(twin, state_lib.adam(1e-3),
-                                            device='cuda')
-  before = _all_launch_counts()[1:]
+  from ranking_tpu_torch.utils import list_ops
+  state = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                       device='cuda')
+  before = _all_launch_counts()
   with contextlib.ExitStack() as stack:
     stack.enter_context(fused_bn.plain_versions())
-    stack.enter_context(pairwise.plain_versions())
-    twin_state, twin_metrics = step(twin_state, batch)
-  if _all_launch_counts()[1:] != before:
-    _fail(f'{what}: the plain-version step launched a kernel')
+    if plain_pairwise:
+      stack.enter_context(pairwise.plain_versions())
+    if plain_sort:
+      stack.enter_context(mock.patch.object(list_ops, '_kernel_sort_ok',
+                                            return_value=False))
+    rec = (stack.enter_context(_recording_tower(state.model)) if record
+           else None)
+    state, metrics = step(state, batch)
+  launched = [a - b for a, b in zip(_all_launch_counts(), before)]
+  tower, others = launched[1:6], launched[:1] + launched[6:]
+  if any(tower) or (plain_sort and others[0]) or (plain_pairwise
+                                                  and any(others[1:])):
+    _fail(f'a plain-version step launched a kernel: {launched}')
+  grads = {k: p.grad for k, p in state.model.named_parameters()}
+  stats = {k: v for k, v in state.model.state_dict().items()
+           if 'running' in k}
+  return metrics, grads, stats, others, rec
+
+
+def _hold_first_step(what, step, twin, batch, first_loss, first_grads,
+                     first_stats, plain_sort=False, zero_names=(),
+                     zero_tol=1e-6, anchor=None, first_record=None,
+                     force_anchor=False):
+  """The same first step through the plain versions of rows 2-8 (and of
+  row 1 with ``plain_sort``), on the card, from ``twin``, a copy of the
+  untrained model: loss, gradients and running statistics against the
+  kernels' step. The gradients of ``zero_names`` are zero in theory and
+  held to ``zero_tol`` absolute; the largest entry to ``OP_TOL_MAX``.
+
+  A gradient outside ``OP_TOL_NORM`` is settled by ``anchor`` (a function
+  of a step's record giving ``_first_step_f64``), with ``first_record``
+  the kernels' step's: the two float32 steps differ where a unit's
+  pre-activation is within rounding of 0 and the two forwards set its ReLU
+  gate differently, each such unit moving its gradients by one row's whole
+  term, and the logits and the loss's gradient then differ a little too.
+  So the step with only the tower's kernels switched off (rows 1 and 7-8
+  on) must be within OP_TOL of the plain versions' step, and each float32
+  step within ``ANCHOR_TOL`` of the float64 step of its own gates and loss
+  gradient. ``force_anchor`` applies these checks to a step within OP_TOL
+  as well. Returns the readings."""
+  import copy
+  use_anchor = anchor is not None
+  rest_twin = copy.deepcopy(twin) if use_anchor else None
+  twin_metrics, plain_grads, plain_stats, _, plain_record = _plain_step(
+      step, twin, batch, plain_sort, record=use_anchor)
   loss_err = abs(twin_metrics['loss'].item() - first_loss)
   if loss_err > 1e-5 * abs(first_loss):
     _fail(f'{what}: first loss {first_loss} vs plain versions '
           f'{twin_metrics["loss"].item()}')
-  worst_norm = worst_max = 0.0
-  for k, p in twin_state.model.named_parameters():
-    g, w = first_grads[k], p.grad
-    scale = w.abs().max().item()
-    if scale < 1e-6:   # zero in theory (biases in front of a batch norm)
-      if (g - w).abs().max().item() > 1e-6:
-        _fail(f'{what}: zero gradient {k} off by more than 1e-6')
-      continue
-    worst_norm = max(worst_norm, ((g - w).norm() / w.norm()).item())
-    worst_max = max(worst_max, (g - w).abs().max().item() / scale)
-  if worst_norm > OP_TOL_NORM or worst_max > OP_TOL_MAX:
-    _fail(f'{what}: first-step gradients differ from the plain versions by '
-          f'{worst_norm:.3g} in norm, {worst_max:.3g} at most')
+  worst_norm, worst_name, worst_max, max_name = _grad_errors(
+      first_grads, plain_grads, zero_names, zero_tol)
+  if worst_max == math.inf:
+    _fail(f'{what}: gradient {worst_name} off by more than {zero_tol:.3g}')
+  if worst_max > OP_TOL_MAX:
+    _fail(f'{what}: first-step gradients differ from the plain versions '
+          f'by {worst_max:.3g} of the largest entry in {max_name} (allowed '
+          f'{OP_TOL_MAX})')
+  out = {'norm': worst_norm, 'norm_param': worst_name, 'max': worst_max,
+         'max_param': max_name}
+  anchored = ''
+  if worst_norm > OP_TOL_NORM and not use_anchor:
+    _fail(f'{what}: first-step gradients differ from the plain versions '
+          f'by {worst_norm:.3g} in norm (worst {worst_name}), '
+          f'{worst_max:.3g} at most')
+  if use_anchor and (worst_norm > OP_TOL_NORM or force_anchor):
+    _, rest_grads, _, rest_launches, _ = _plain_step(
+        step, rest_twin, batch, False, plain_pairwise=False)
+    rest = _grad_errors(rest_grads, plain_grads, zero_names, zero_tol)
+    if rest[0] > OP_TOL_NORM or rest[2] > OP_TOL_MAX:
+      _fail(f'{what}: with only the tower switched off (launches of rows 1 '
+            f'and 7-8: {rest_launches}) the first step differs from the '
+            f'plain versions by {rest[0]:.3g} in norm ({rest[1]}), '
+            f'{rest[2]:.3g} at most ({rest[3]})')
+    kern = _grad_errors(first_grads, anchor(first_record), zero_names,
+                        zero_tol)
+    plain = _grad_errors(plain_grads, anchor(plain_record), zero_names,
+                         zero_tol)
+    flips = sum(int((g != p).sum().item()) for g, p in zip(
+        first_record['gates'], plain_record['gates']))
+    out.update(rest_norm=rest[0], rest_max=rest[2],
+               rest_launches=rest_launches, gates_differ=flips,
+               kernels_f64_norm=kern[0], kernels_f64_max=kern[2],
+               kernels_f64_param=kern[1], plain_f64_norm=plain[0],
+               plain_f64_max=plain[2], plain_f64_param=plain[1])
+    for side, e in (('kernels\'', kern), ('plain versions\'', plain)):
+      if e[0] > ANCHOR_TOL or e[2] > ANCHOR_TOL:
+        _fail(f'{what}: first-step gradients differ from the plain versions '
+              f'by {worst_norm:.3g} in norm (worst {worst_name}); the '
+              f'{side} step is off from the float64 step of its own ReLU '
+              f'gates and loss gradient by {e[0]:.3g} in norm ({e[1]}), '
+              f'{e[2]:.3g} at most ({e[3]}); the two forwards differ in '
+              f'{flips} gates')
+    why = 'beyond OP_TOL_NORM' if worst_norm > OP_TOL_NORM else 'forced'
+    anchored = (f' ({why}: rows 1 and 7-8 alone ({rest_launches} '
+                f'launches) within {rest[0]:.3g} in norm and {rest[2]:.3g} '
+                f'at most; the two forwards differ in {flips} ReLU gates; '
+                f'against float64 of the same gates and loss gradient: '
+                f'kernels {kern[0]:.3g} in norm ({kern[1]}), {kern[2]:.3g} '
+                f'at most, plain {plain[0]:.3g} ({plain[1]}), '
+                f'{plain[2]:.3g})')
   stat_err = 0.0
-  for k, v in twin_state.model.state_dict().items():
-    if 'running' in k:
-      stat_err = max(stat_err, _rel_err(first_stats[k], v)[1])
+  for k, v in plain_stats.items():
+    stat_err = max(stat_err, _rel_err(first_stats[k], v)[1])
   if stat_err > 1e-5:
     _fail(f'{what}: running statistics differ from the plain versions by '
           f'{stat_err:.3g}')
   _log(f'{what}: first step vs plain versions on the card: loss within '
-       f'{loss_err:.3g}, gradients within {worst_norm:.3g} in norm and '
-       f'{worst_max:.3g} at most, running statistics within {stat_err:.3g}')
+       f'{loss_err:.3g}, gradients within {worst_norm:.3g} in norm '
+       f'({worst_name}) and {worst_max:.3g} at most ({max_name}){anchored}, '
+       f'running statistics within {stat_err:.3g}')
+  return out
 
 
 def _train_main_path(gen, eval_batches, fns):
@@ -884,8 +1080,10 @@ def _train_main_path(gen, eval_batches, fns):
        'trained model eval: '
        + ', '.join(f'{k} {v:.4f}' for k, v in trained_eval.items()))
 
+  # softmax: a shift of every logit leaves the loss as it is.
   _hold_first_step('train', step, twin, batch, losses[0], first_grads,
-                   first_stats)
+                   first_stats, zero_names=_zero_in_theory(twin, True),
+                   zero_tol=_zero_tol(twin, loss_fn, batch))
   return counts, state, step, batch
 
 
@@ -1158,6 +1356,18 @@ def _pairwise_cases(gen):
   for l in (pw.MAX_TABLE_LIST_SIZE, pw.MAX_TABLE_LIST_SIZE + 1):
     cases.append((f'tables edge L{l} logistic v2', _pairwise_inputs(edge, 1, l),
                   static('logistic', 'v2', l=l)))
+  # yeti_logistic_loss (phase 21): the B x 8 Gumbel-sampled lists, where
+  # the host gives a list fewer row tiles than the flagship's; the Yeti
+  # DCG weight is not normalized (scale = L) and takes the log2 discount.
+  sampled = _pairwise_inputs(edge, B * 8, L)
+  sampled['scale'] = torch.full_like(sampled['scale'], float(L))
+  tiles = pw._tiles(B * 8, L)
+  for loss, mode, kind in (('logistic', 'yeti', 'log2'),
+                           ('logistic', 'v2', 'log1p'),
+                           ('hinge', 'none', 'log1p'),
+                           ('soft01', 'v1', 'log1p')):
+    cases.append((f'B{B * 8} L{L} ({tiles} row tile a list) {loss} {mode} '
+                  f'{kind}', sampled, static(loss, mode, kind=kind)))
   return cases
 
 
@@ -1277,9 +1487,9 @@ def _lambdarank_main_path(gen, eval_batches, fns):
   model = _train_model(gen)
   twin = copy.deepcopy(model)
   batch = dataset.flatten_examples(_make_batch(gen, B))
-  step = steps.make_train_step(loss_registry.make_loss_fn(
-      'pairwise_logistic_loss', lambda_weight=lw.create_ndcg_lambda_weight()),
-                               device='cuda')
+  loss_fn = loss_registry.make_loss_fn(
+      'pairwise_logistic_loss', lambda_weight=lw.create_ndcg_lambda_weight())
+  step = steps.make_train_step(loss_fn, device='cuda')
 
   # The main path of this slice: every count starts at 0 here.
   fused_bn.reset_launches()
@@ -1339,8 +1549,10 @@ def _lambdarank_main_path(gen, eval_batches, fns):
        + ', '.join(f'{k} {v:.6f}' for k, v in other_losses.items())
        + '; trained model eval: '
        + ', '.join(f'{k} {v:.4f}' for k, v in trained_eval.items()))
+  # Pairwise logistic: a function of logit differences only.
   _hold_first_step('lambdarank', step, twin, batch, losses[0], first_grads,
-                   first_stats)
+                   first_stats, zero_names=_zero_in_theory(twin, True),
+                   zero_tol=_zero_tol(twin, loss_fn, batch))
   return counts, state, step, batch
 
 
@@ -3612,6 +3824,613 @@ def _eval_phase(gen, model, eval_batches):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 21: the rest of the loss zoo and multi-task training ---------------
+
+# The 20 keys beyond the softmax and four pairwise keys of phases 7-12.
+ZOO_KEYS = (
+    'yeti_logistic_loss', 'circle_loss', 'calibrated_softmax_loss',
+    'poly_one_softmax_loss', 'unique_softmax_loss',
+    'sigmoid_cross_entropy_loss', 'mean_squared_loss', 'list_mle_loss',
+    'approx_ndcg_loss', 'approx_mrr_loss', 'gumbel_approx_ndcg_loss',
+    'neural_sort_cross_entropy_loss', 'gumbel_neural_sort_cross_entropy_loss',
+    'neural_sort_ndcg_loss', 'gumbel_neural_sort_ndcg_loss', 'ordinal_loss',
+    'multi_class_loss', 'click_em_loss', 'mixture_em_loss',
+    'coupled_rankdistil_loss')
+# (output units, loss params) of the heads that are not one logit, and the
+# keys trained on binary click labels (benchmarks/keras_extras_quality.py:
+# 66-77); graded labels 0-4 for the rest.
+ZOO_HEADS = {'ordinal_loss': (4, {'ordinal_size': 4}),
+             'multi_class_loss': (5, {'num_classes': 5, 'from_logits': True}),
+             'click_em_loss': (2, {}), 'mixture_em_loss': (3, {})}
+ZOO_BINARY = ('click_em_loss', 'mixture_em_loss')
+# Row 1's launches a train step, counted on the card by torch.profiler.
+ZOO_SORT_KEYS = ('approx_ndcg_loss', 'neural_sort_ndcg_loss',
+                 'gumbel_approx_ndcg_loss')
+# The card's float32 loss and logit gradient against a float64 recompute
+# on the CPU of the same logits. The value: float32 sums of up to 1024 x
+# 200 x 200 terms (the Gumbel NeuralSort keys), 1e-4 of the float64 value.
+# The gradient, as a share of its largest entry: exponents of up to
+# L * |s| (NeuralSort's rank coefficients times the logits, ~1e3) carry
+# float32 rounding of about 1e3 * 6e-8 into each softmax weight, so 1e-3;
+# where a key is worse conditioned than that (NeuralSort over Gumbel
+# log-probabilities), the gradient passes if it is no more than twice as
+# far from float64 as the same float32 computation on the CPU.
+ZOO_VALUE_TOL, ZOO_GRAD_TOL = 1e-4, 1e-3
+# The one-logit keys that adding one number to every valid logit leaves
+# unchanged (functions of logit differences, or of standardized logits),
+# so that the output bias's gradient is zero in theory; checked in float64
+# on the CPU (``ZOO_SHIFT_TOL``: the padding logit, log(1e-10), still
+# enters a softmax's sum at ~1e-10 an item).
+ZOO_SHIFT_INVARIANT = frozenset((
+    'softmax_loss', 'yeti_logistic_loss', 'poly_one_softmax_loss',
+    'unique_softmax_loss', 'list_mle_loss', 'approx_ndcg_loss',
+    'approx_mrr_loss', 'gumbel_approx_ndcg_loss',
+    'neural_sort_cross_entropy_loss', 'gumbel_neural_sort_cross_entropy_loss',
+    'neural_sort_ndcg_loss', 'gumbel_neural_sort_ndcg_loss',
+    'coupled_rankdistil_loss'))
+ZOO_SHIFT_TOL = 1e-9
+MT_TASKS = ('relevance', 'click')
+MT_LOSSES = {'relevance': 'softmax_loss', 'click': 'sigmoid_cross_entropy_loss'}
+MT_WEIGHTS = {'relevance': 1.0, 'click': 0.3}
+
+
+def _zoo_batch(gen, binary=False):
+  """A flat flagship batch; with ``binary`` its graded labels become clicks
+  (label > 0)."""
+  import torch
+  from ranking_tpu_torch.data import dataset
+  batch = _make_batch(gen, B)
+  if binary:
+    batch = batch.replace(labels=torch.where(
+        batch.mask, (batch.labels > 0).to(torch.float32), -1.0))
+  return dataset.flatten_examples(batch)
+
+
+@contextlib.contextmanager
+def _recording_tower(model):
+  """Inside, a train step of ``model`` records what its backward started
+  from: each hidden layer's ReLU gates (which units of its [N, F] output
+  were open: ``y * s + t > 0``, the product and the sum each rounded to
+  float32, as the kernels' ``scale_shift`` and the plain versions do) and
+  the gradient of the loss with respect to ``model``'s output. Yields a
+  dict that has 'gates' and 'dlogits' after the block. The wrappers'
+  launch counts are as without it."""
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  ys, folds, rec = [], [], {}
+  layer_forward, bn_fold = fused_bn.layer_forward, fused_bn._bn_fold
+
+  def record_layer(*args, **kwargs):
+    out = layer_forward(*args, **kwargs)
+    ys.append(out[0])
+    return out
+
+  def record_fold(*args, **kwargs):
+    out = bn_fold(*args, **kwargs)
+    folds.append(out)
+    return out
+
+  def record_output(module, inputs, output):
+    output.register_hook(lambda g: rec.update(dlogits=g.detach().clone()))
+
+  record_layer.launches = 0   # the wrapper counts on its module's name
+  handle = model.register_forward_hook(record_output)
+  try:
+    with mock.patch.object(fused_bn, 'layer_forward', record_layer), \
+        mock.patch.object(fused_bn, '_bn_fold', record_fold):
+      yield rec
+  finally:
+    handle.remove()
+    layer_forward.launches += record_layer.launches
+  layers = len(model.scorer.tower.bn)
+  if len(ys) != layers or len(folds) != layers or 'dlogits' not in rec:
+    _fail(f'recording the tower: {len(ys)} layers, {len(folds)} folds '
+          f'(not {layers}), output gradient {"dlogits" in rec}')
+  rec['gates'] = [y.to(f[3].dtype) * f[3] + f[4] > 0
+                  for y, f in zip(ys, folds)]
+
+
+def _first_step_f64(model, batch, record):
+  """The first train step's parameter gradients in float64 on the card,
+  from a copy of the untrained flagship-shaped ``model``, given a float32
+  step's ``record`` (``_recording_tower``): the log1p transform, the tower
+  as ``fused_bn.reference_bn_mlp`` (masked batch moments over the valid
+  rows, as the fused path) but with that step's ReLU gates, the output
+  layer and the masked logits, whose backward starts from that step's
+  gradient of the loss. So it is what that step's tower and output layer
+  compute, in float64; the loss and its kernels are held on their own."""
+  import copy
+  import torch
+  import torch.nn.functional as nnf
+  from ranking_tpu_torch.models import layers
+  from ranking_tpu_torch.train import steps
+  model = copy.deepcopy(model).to('cuda', torch.float64)
+  tower = model.scorer.tower
+  b = steps.restore_flat_examples(batch.to('cuda'))
+  x = b.examples['features'].to(torch.float64)
+  h = (torch.sign(x) * torch.log1p(torch.abs(x))).reshape(-1, F)
+  m = b.mask.reshape(-1, 1).to(torch.float64)
+  n = m.sum().clamp(min=1.0)
+  for dense, bn, gate in zip(tower.dense[:-1], tower.bn, record['gates']):
+    y = h @ dense.weight.t() + dense.bias
+    mu = (y * m).sum(0) / n
+    var = torch.clamp((y * y * m).sum(0) / n - mu * mu, min=0.0)
+    h = ((y - mu) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias) * gate
+  out = nnf.linear(h, tower.dense[-1].weight, tower.dense[-1].bias)
+  out = out.reshape(b.mask.shape + out.shape[-1:])
+  if out.shape[-1] == 1:
+    logits = torch.where(b.mask, out[..., 0], layers.PADDING_LOGIT)
+  else:
+    logits = torch.where(b.mask[:, :, None], out, layers.PADDING_LOGIT)
+  logits.backward(record['dlogits'].to(torch.float64))
+  return {k: p.grad for k, p in model.named_parameters()}
+
+
+def _zoo_loss_check(key, loss_fn, model, batch):
+  """The loss and its logit gradient on the card, at the logits of a
+  train-mode forward of ``model`` (a copy: the forward moves the running
+  statistics), against the same loss in float64 on the CPU of the same
+  logits. Returns (value error, gradient error, and where that is beyond
+  ZOO_GRAD_TOL the same float32 computation's on the CPU, else None), as
+  shares of the float64 value and largest gradient entry."""
+  import torch
+  from ranking_tpu_torch.train import steps
+  model = model.to('cuda')
+  b = steps.restore_flat_examples(batch.to('cuda'))
+  logits = model(b.context, b.examples, b.mask, training=True).detach()
+  card = logits.clone().requires_grad_()
+  value = loss_fn(b.labels, card)
+  value.backward()
+  cpu = logits.to('cpu', torch.float64).requires_grad_()
+  want = loss_fn(b.labels.cpu(), cpu)
+  want.backward()
+  if want.dtype != torch.float64:
+    _fail(f'zoo {key}: the CPU recompute ran in {want.dtype}')
+  if key in ZOO_SHIFT_INVARIANT:
+    mask = b.mask.cpu()
+    shifted = loss_fn(b.labels.cpu(), torch.where(mask, cpu.detach() + 0.37,
+                                                  cpu.detach()))
+    shift_err = abs(shifted.item() - want.item()) / abs(want.item())
+    if not shift_err <= ZOO_SHIFT_TOL:
+      _fail(f'zoo {key}: listed in ZOO_SHIFT_INVARIANT, but a shift of '
+            f'every valid logit moves the float64 loss by {shift_err:.3g}')
+  value_err = abs(value.item() - want.item()) / max(abs(want.item()), 1e-30)
+
+  def grad_error(grad):
+    return ((grad.cpu().double() - cpu.grad).abs().max()
+            / cpu.grad.abs().max().clamp(min=1e-30)).item()
+
+  grad_err, cpu32_err = grad_error(card.grad), None
+  if not math.isfinite(value.item()) or not torch.isfinite(card.grad).all():
+    _fail(f'zoo {key}: the loss or its gradient is not finite on the card')
+  if grad_err > ZOO_GRAD_TOL:
+    # The same float32 computation on the CPU: if it is as far from
+    # float64, float32 and not the card makes the difference.
+    cpu32 = logits.cpu().requires_grad_()
+    loss_fn(b.labels.cpu(), cpu32).backward()
+    cpu32_err = grad_error(cpu32.grad)
+  if value_err > ZOO_VALUE_TOL or (
+      grad_err > ZOO_GRAD_TOL and grad_err > 2 * cpu32_err):
+    _fail(f'zoo {key}: card vs float64 CPU: value {value.item()} vs '
+          f'{want.item()} ({value_err:.3g}), gradient {grad_err:.3g} of its '
+          f'largest entry (tolerances {ZOO_VALUE_TOL}, {ZOO_GRAD_TOL}, or '
+          f'twice float32 on the CPU: {cpu32_err})')
+  return value_err, grad_err, cpu32_err
+
+
+def _zoo_first_step(key, gen, batches, force_anchor=False):
+  """Phase 21a's checks of one key's first step: the loss on the card
+  against float64, then the flagship train step against the plain
+  versions (rows 1-8 off). Returns (readings, step, state after the step,
+  batch). ``force_anchor`` holds the kernels' and the plain versions'
+  steps against float64 even where the step is within OP_TOL."""
+  import copy
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  units, params = ZOO_HEADS.get(key, (1, {}))
+  batch = batches['binary' if key in ZOO_BINARY else 'graded']
+  loss_fn = loss_registry.make_loss_fn(key, params=params)
+  step = steps.make_train_step(loss_fn, device='cuda')
+  model = _train_model(gen, output_units=units)
+  twin, anchor_model = copy.deepcopy(model), copy.deepcopy(model)
+  value_err, grad_err, cpu32_err = _zoo_loss_check(
+      key, loss_fn, copy.deepcopy(model), batch)
+  state = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                       device='cuda')
+  with _recording_tower(state.model) as first_record:
+    state, metrics = step(state, batch)
+  first_loss = metrics['loss'].item()
+  if not math.isfinite(first_loss):
+    _fail(f'zoo {key}: first loss {first_loss}')
+  first_grads, first_stats = _snapshot_first_step(state)
+
+  hold = _hold_first_step(f'zoo {key}', step, twin, batch, first_loss,
+                          first_grads, first_stats, plain_sort=True,
+                          zero_names=_zero_in_theory(
+                              twin, key in ZOO_SHIFT_INVARIANT),
+                          zero_tol=_zero_tol(twin, loss_fn, batch),
+                          anchor=lambda rec: _first_step_f64(anchor_model,
+                                                             batch, rec),
+                          first_record=first_record,
+                          force_anchor=force_anchor)
+  out = {'first_loss': first_loss, 'value_err': value_err,
+         'grad_err': grad_err, 'grad_err_cpu_float32': cpu32_err,
+         'first_step': hold}
+  return out, step, state, batch
+
+
+def _anchor_sweep(seeds):
+  """``--anchor-seeds``: ``_zoo_first_step`` of every key with
+  ``force_anchor``, for the default run's generator (SEED + 40) and
+  ``seeds`` - 1 others. A failed check is recorded and the sweep goes on.
+  Returns ({key: [readings a seed]}, failures)."""
+  import torch
+  out, failures = {}, []
+  for i in range(seeds):
+    gen = torch.Generator().manual_seed(SEED + 40 + 1000 * i)
+    batches = {'graded': _zoo_batch(gen), 'binary': _zoo_batch(gen, True)}
+    for key in ('softmax_loss',) + ZOO_KEYS:
+      try:
+        readings, *_ = _zoo_first_step(key, gen, batches, force_anchor=True)
+        out.setdefault(key, []).append(readings['first_step'])
+      except SystemExit as e:
+        failures.append(f'seed {i}: {e}')
+        out.setdefault(key, []).append({'failed': str(e)})
+        _log(str(e))
+      gc.collect()
+      torch.cuda.empty_cache()
+  return out, failures
+
+
+def _zoo_key(key, gen, batches):
+  """Phase 21a for one key: ``_zoo_first_step``, then K = 10 steps a
+  dispatch as graph replays, timed by CUDA events; peak device memory;
+  for ZOO_SORT_KEYS, row 1 on the card by torch.profiler against the
+  wrapper's count in one eager step."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import sort as cuda_sort
+  from ranking_tpu_torch.train import steps
+  out, step, state, batch = _zoo_first_step(key, gen, batches)
+  value_err, grad_err = out['value_err'], out['grad_err']
+  cpu32_err = out['grad_err_cpu_float32']
+  if key in ZOO_SORT_KEYS:
+    before = cuda_sort.sorted_values_and_ranks.launches
+    card = _kernel_counts(lambda: step(state, batch)).get(
+        'rank_sort_kernel', 0)
+    wrapper = cuda_sort.sorted_values_and_ranks.launches - before
+    if card != wrapper or card == 0:
+      _fail(f'zoo {key}: rank_sort_kernel ran {card} times on the card in '
+            f'one step; the wrapper counted {wrapper}')
+    out['sort_launches_card'] = card
+  stacked = steps.stack_batches([batch] * KSTEPS).to('cuda')
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  graphed = steps.make_multi_step(step, device='cuda')
+  state, metrics = graphed(state, stacked, None)
+  losses = metrics['loss'].tolist()
+  if graphed.captures != 1 or not all(math.isfinite(v) for v in losses):
+    _fail(f'zoo {key}: {graphed.captures} captures, losses {losses}')
+  ms = _event_ms(lambda: graphed(state, stacked, None), 3, warmup=1) / KSTEPS
+  peak = torch.cuda.max_memory_allocated()
+  out.update(graph_ms_per_step=ms, peak_mib=peak / 2 ** 20,
+             peak_over_state_mib=(peak - base) / 2 ** 20,
+             launches_per_step=dict(graphed.captured_launches),
+             losses_graph=losses)
+  if key in ZOO_SORT_KEYS and (graphed.captured_launches.get(
+      'sorted_values_and_ranks', 0) != out['sort_launches_card']):
+    _fail(f'zoo {key}: the capture recorded '
+          f'{graphed.captured_launches} launches; one eager step ran '
+          f'{out["sort_launches_card"]} sorts on the card')
+  _log(f'zoo {key}: card vs float64 value {value_err:.3g}, gradient '
+       f'{grad_err:.3g}'
+       + (f' (float32 on the CPU {cpu32_err:.3g})' if cpu32_err else '')
+       + f'; {ms:.4f} ms a step (K = {KSTEPS} graph replays), peak '
+       f'{out["peak_mib"]:.0f} MiB ({out["peak_over_state_mib"]:.0f} over '
+       f'the state and batches), launches a step {out["launches_per_step"]}'
+       + (f', rank_sort_kernel {out["sort_launches_card"]} a step on the card'
+          if key in ZOO_SORT_KEYS else ''))
+  del state, graphed, stacked
+  gc.collect()   # a captured graph's memory goes with its last reference
+  torch.cuda.empty_cache()
+  return out
+
+
+def _zoo_graph_vs_eager(gen):
+  """Phase 21b: after a first dispatch (warm-up and capture), 10 replays on
+  the state and 10 eager steps on a copy of it, on the same fresh
+  batches, must be bitwise equal (every parameter, buffer, moment, step
+  tensor, rate and count, and the per-step losses): Gumbel approx NDCG and
+  ListMLE drawing from a CUDA generator (each eager copy from a copy of
+  its state), approx NDCG with no generator (the kept draws)."""
+  import copy
+  import torch
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  out = {}
+  for key, random in (('gumbel_approx_ndcg_loss', True),
+                      ('list_mle_loss', True), ('approx_ndcg_loss', False)):
+    step = steps.make_train_step(loss_registry.make_loss_fn(key),
+                                 device='cuda')
+    warm = steps.stack_batches([_zoo_batch(gen) for _ in range(KSTEPS)]).to(
+        'cuda')
+    run = steps.stack_batches([_zoo_batch(gen) for _ in range(KSTEPS)]).to(
+        'cuda')
+    state = state_lib.create_train_state(_train_model(gen),
+                                         state_lib.adam(1e-3), device='cuda')
+    rng = (torch.Generator(device='cuda').manual_seed(SEED) if random
+           else None)
+
+    def rng_copy():
+      if rng is None:
+        return None
+      twin_rng = torch.Generator(device='cuda')
+      twin_rng.set_state(rng.get_state())
+      return twin_rng
+
+    graphed = steps.make_multi_step(step, device='cuda')
+    eager = steps.make_multi_step(step, device='cuda', eager=True)
+    state, _ = graphed(state, warm, rng)
+    twin, twin_rng = copy.deepcopy(state), rng_copy()
+    state, graph_metrics = graphed(state, run, rng)
+    twin, eager_metrics = eager(twin, run, twin_rng)
+    torch.cuda.synchronize()
+    differ, worst = _state_diff(state, twin)
+    if (graphed.captures != 1 or differ
+        or not torch.equal(graph_metrics['loss'], eager_metrics['loss'])):
+      _fail(f'zoo graph vs eager {key}: {graphed.captures} captures, '
+            f'{len(differ)} tensors differ ({differ[:4]}, worst {worst:.3g}), '
+            f'losses {graph_metrics["loss"].tolist()} vs '
+            f'{eager_metrics["loss"].tolist()}')
+    out[key] = {'generator': 'cuda' if random else None, 'bitwise': True,
+                'replays': graphed.replays}
+    _log(f'zoo graph vs eager {key} ('
+         + ('CUDA generator' if random else 'no generator')
+         + f'): {KSTEPS} replays == {KSTEPS} eager steps bitwise')
+    del state, twin, graphed, eager, warm, run
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+def _write_click_elwc(path, num_lists, seed):
+  """ELWC lists in phase 18's shape (``proto.random_lists``) with an int64
+  ``click`` a document: a relevant document is clicked with probability
+  0.7, an irrelevant one never (examples/multitask_ranking.py:43-69)."""
+  import numpy as np
+  from ranking_tpu_torch.data import proto
+  from ranking_tpu_torch.data import tfrecord
+  x, labels, counts = proto.random_lists(num_lists, F, PIPE_MIN_DOCS, L, seed)
+  clicks = ((labels > 0)
+            & (np.random.RandomState(seed + 1000).rand(len(labels)) < 0.7)
+            ).astype(np.int64)
+  starts = np.concatenate([[0], np.cumsum(counts)])
+  tfrecord.write_records(path, (proto.make_elwc({}, [
+      {'float_features': x[d], 'relevance': labels[d:d + 1],
+       'click': clicks[d:d + 1]} for d in range(starts[i], starts[i + 1])])
+      for i in range(num_lists)))
+  return int(clicks.sum()), int((labels > 0).sum())
+
+
+def _zoo_pipelines(gen):
+  """Phase 21c and 21d over ELWC files in phase 18's shape (1,280 train
+  lists in 4 files, 256 validation lists) that also carry a click a
+  document. (c) ``SimplePipeline`` with ``loss='approx_ndcg_loss'`` (the
+  scale-invariant recipe by default) over ``SimpleDatasetBuilder``, one
+  epoch at K = 10: timed (lists/s of the replay-only window), then a second
+  run under ``torch.profiler`` whose kernels on the card must equal the
+  wrappers' eager calls plus captured launches x replays. (d)
+  ``MultiTaskPipeline`` over ``MultiLabelDatasetBuilder``, the multi-task
+  example's recipe at full width, one epoch at K = 10, then its graphed
+  eval against the eager eval bit for bit. Returns (numbers, wrapper
+  launches of (c)'s profiled run, its kernels on the card, wrapper
+  launches of (d))."""
+  import os
+  import shutil
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.data import parsers
+  from ranking_tpu_torch.models import scorers
+  from ranking_tpu_torch.pipeline import hparams as hparams_lib
+  from ranking_tpu_torch.pipeline import pipeline as pipeline_lib
+  from ranking_tpu_torch.train import steps
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      '.scratch', 'chip_smoke_zoo')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  out = {}
+  try:
+    t0 = time.perf_counter()
+    per_file = PIPE_TRAIN_LISTS // ELWC_TRAIN_FILES
+    clicks = [_write_click_elwc(os.path.join(root, f'train-{i}.tfrecord'),
+                                per_file, SEED + 20 + i)
+              for i in range(ELWC_TRAIN_FILES)]
+    _write_click_elwc(os.path.join(root, 'vali.tfrecord'), PIPE_VALID_LISTS,
+                      SEED + 25)
+    out['write_s'] = time.perf_counter() - t0
+    out['clicks'], out['relevant'] = (sum(c[0] for c in clicks),
+                                      sum(c[1] for c in clicks))
+    _log(f'zoo: wrote {PIPE_TRAIN_LISTS} train lists in {ELWC_TRAIN_FILES} '
+         f'files and {PIPE_VALID_LISTS} validation lists with clicks '
+         f'({out["clicks"]} clicks on {out["relevant"]} relevant train '
+         f'documents) in {out["write_s"]:.2f} s')
+    example = {'float_features': parsers.FixedLenFeature((F,), 'float32',
+                                                         0.0),
+               'relevance': parsers.FixedLenFeature((), 'int64', 0)}
+    data_hp = hparams_lib.DatasetHparams(
+        train_input_pattern=os.path.join(root, 'train-*.tfrecord'),
+        valid_input_pattern=os.path.join(root, 'vali.tfrecord'),
+        train_batch_size=B, valid_batch_size=B, list_size=L,
+        dataset_engine='native_loader')
+
+    def hparams(model_dir, **kw):
+      return hparams_lib.PipelineHparams(
+          model_dir=os.path.join(root, model_dir), num_epochs=1,
+          steps_per_epoch=PIPE_STEPS_PER_EPOCH, validation_steps=10 ** 6,
+          learning_rate=1e-3, steps_per_execution=KSTEPS, **kw)
+
+    # (c) The ELWC example's default loss.
+    timed = []
+    make_multi_step = steps.make_multi_step
+
+    def make_timed(*args, **kwargs):
+      timed.append(_TimedDispatches(make_multi_step(*args, **kwargs)))
+      return timed[-1]
+
+    pipe = pipeline_lib.SimplePipeline(
+        _train_model(gen), pipeline_lib.SimpleDatasetBuilder(
+            {}, example, data_hp, seed=SEED),
+        hparams('approx_timed', loss='approx_ndcg_loss'), device='cuda')
+    with mock.patch.object(steps, 'make_multi_step', make_timed):
+      history = pipe.train_and_validate()
+    run = pipe._multi_step
+    if (run.captures != 1 or run.replays != PIPE_STEPS_PER_EPOCH - run.warmup
+        or not all(math.isfinite(v) for v in history.values())):
+      _fail(f'zoo approx pipeline: {run.captures} captures, {run.replays} '
+            f'replays, history {history}')
+    out['approx_pipeline'] = {
+        'history': history,
+        'steady': _steady_state(timed[-1].spans, PIPE_STEPS_PER_EPOCH),
+        'examples_per_sec': history['examples_per_sec']}
+    pipe = pipeline_lib.SimplePipeline(
+        _train_model(gen), pipeline_lib.SimpleDatasetBuilder(
+            {}, example, data_hp, seed=SEED),
+        hparams('approx_profiled', loss='approx_ndcg_loss'), device='cuda')
+    before = steps.kernel_launch_counts()
+    result = {}
+    device_counts = _kernel_counts(
+        lambda: result.update(history=pipe.train_and_validate()))
+    after = steps.kernel_launch_counts()
+    approx_wrappers, approx_card = _card_launches(
+        'zoo approx pipeline', before, before, after, pipe._multi_step,
+        device_counts, pipe._eval_step)
+    if (pipe._multi_step.captures != 1
+        or not math.isfinite(result['history']['loss'])):
+      _fail(f'zoo approx pipeline (profiled): {pipe._multi_step.captures} '
+            f'captures, history {result["history"]}')
+    for name in ('sorted_values_and_ranks', 'layer_forward', 'bwd_stats',
+                 'bwd_mats'):
+      if approx_card[name] == 0:
+        _fail(f'zoo approx pipeline never launched {name}')
+    steady = out['approx_pipeline']['steady']
+    _log(f'zoo approx pipeline: loss {history["loss"]:.6f}, val ndcg@5 '
+         f'{history["ndcg@5"]:.4f}; {steady["loop_lists_per_s"]:.0f} lists/s '
+         f'over the replay-only window, dispatches '
+         f'{steady["dispatch_lists_per_s"]:.0f}; whole run '
+         f'{history["examples_per_sec"]:.0f}; profiled run: kernels on the '
+         f'card == eager calls + captured x replays '
+         f'({ {k: v for k, v in approx_card.items() if v} })')
+
+    # (d) The multi-task example's recipe at full width.
+    example_mt = dict(example, click=parsers.FixedLenFeature((), 'int64', 0))
+    model = scorers.RankingModel(scorers.MultiTaskScorer(
+        MT_TASKS, body=scorers.DNNScorer(
+            HIDDEN, in_features=F, output_units=len(MT_TASKS), dropout=0.0,
+            input_grad=False, generator=gen)), transform_name='log1p')
+    builder = pipeline_lib.MultiLabelDatasetBuilder(
+        {}, example_mt, {t: t for t in MT_TASKS}, data_hp, seed=SEED)
+    before = steps.kernel_launch_counts()
+    pipe = pipeline_lib.MultiTaskPipeline(
+        model, builder, hparams('multitask', loss=MT_LOSSES,
+                                loss_weights=MT_WEIGHTS), device='cuda')
+    t0 = time.perf_counter()
+    history = pipe.train_and_validate()
+    run_s = time.perf_counter() - t0
+    mt_wrappers = {n: v - before[n]
+                   for n, v in steps.kernel_launch_counts().items()}
+    names = sorted(f'{t}/ndcg{s}' for t in MT_TASKS
+                   for s in ('@1', '@5', '@10', ''))
+    if sorted(k for k in history if '/' in k) != names:
+      _fail(f'zoo multitask: metrics {sorted(history)}, not {names}')
+    if (pipe._multi_step.captures != 1
+        or not all(math.isfinite(v) for v in history.values())):
+      _fail(f'zoo multitask: {pipe._multi_step.captures} captures, history '
+            f'{history}')
+    # The pipeline's own graphed eval (captured in its validation pass on
+    # the trained model) against the eager step it wraps, on the validation
+    # lists: its replays must equal the eager step bit for bit, and the
+    # history's val_loss and task metrics must be the eager results.
+    trained = pipe.final_state.model
+    graphed_eval = pipe._eval_step
+    captures = graphed_eval.captures
+    batches = list(dataset.prefetch_to_device(builder.valid_batches(), 'cuda',
+                                              flat_examples=True))
+
+    def eval_pass(step_fn):
+      states = steps.init_metric_states(pipe.metric_fns, with_loss=True,
+                                        device='cuda')
+      logits = []
+      for batch in batches:
+        states, lg = step_fn(trained, batch, states,
+                             num_valid_rows=batch.batch_size)
+        logits.append(lg)
+      return states, logits
+
+    replays = graphed_eval.replays
+    g_states, g_logits = eval_pass(graphed_eval)
+    e_states, e_logits = eval_pass(graphed_eval.eval_step)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g_states[n].total, e_states[n].total)
+                and torch.equal(g_states[n].count, e_states[n].count)
+                for n in e_states) and all(
+                    torch.equal(g[t], e[t]) for g, e in zip(g_logits, e_logits)
+                    for t in MT_TASKS)
+    if (not equal or captures != 1 or graphed_eval.captures != captures
+        or graphed_eval.replays - replays != len(batches)):
+      _fail(f'zoo multitask: the pipeline\'s graphed eval != its eager step '
+            f'({graphed_eval.captures - captures} new captures, '
+            f'{graphed_eval.replays - replays} replays for {len(batches)} '
+            'batches)')
+    eager = {n: v.to(torch.float32).item()
+             for n, v in steps.metric_results(e_states).items()}
+    eager['val_loss'] = eager.pop('loss')
+    differ = {k: (history[k], v) for k, v in eager.items() if history[k] != v}
+    if differ:
+      _fail(f'zoo multitask: the history differs from the eager eval of the '
+            f'trained model: {differ}')
+    results = {n: s.result().item() for n, s in e_states.items()}
+    out['multitask'] = {'history': history, 'run_s': run_s,
+                        'eval_graphed_equals_eager': True,
+                        'eval_replays': graphed_eval.replays,
+                        'eval': results}
+    _log(f'zoo multitask: one capture, loss {history["loss"]:.6f}, val_loss '
+         f'{history["val_loss"]:.6f}, '
+         + ', '.join(f'{k} {history[k]:.4f}' for k in names)
+         + f'; graphed eval == eager bit for bit over {len(batches)} '
+         f'batches; run {run_s:.1f} s')
+    return out, approx_wrappers, approx_card, mt_wrappers
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _zoo_phase():
+  """Phase 21: every key of the loss zoo on the flagship step (a), graphed
+  == eager for the random keys (b), and the two pipelines (c, d). Returns
+  (numbers, per-key launches a step, (c)'s wrapper launches, (c)'s kernels
+  on the card, (d)'s wrapper launches)."""
+  import torch
+  gen = torch.Generator().manual_seed(SEED + 40)
+  batches = {'graded': _zoo_batch(gen), 'binary': _zoo_batch(gen, True)}
+  keys = {}
+  for key in ('softmax_loss',) + ZOO_KEYS:
+    keys[key] = _zoo_key(key, gen, batches)
+  softmax_ms = keys['softmax_loss']['graph_ms_per_step']
+  perm_mib = B * 8 * L * L * 4 / 2 ** 20
+  _log('zoo: ms a step at K = 10 beside softmax '
+       f'({softmax_ms:.4f}): ' + ', '.join(
+           f'{k} {v["graph_ms_per_step"]:.4f} ({v["peak_mib"]:.0f} MiB)'
+           for k, v in keys.items() if k != 'softmax_loss')
+       + f'; one [{B * 8}, {L}, {L}] float32 permutation tensor is '
+       f'{perm_mib:.0f} MiB')
+  graph = _zoo_graph_vs_eager(gen)
+  pipes, approx_wrappers, approx_card, mt_wrappers = _zoo_pipelines(gen)
+  numbers = {'keys': keys, 'softmax_ms_per_step': softmax_ms,
+             'perm_tensor_mib': perm_mib, 'graph_vs_eager': graph, **pipes}
+  per_step = {k: v['launches_per_step'] for k, v in keys.items()}
+  return numbers, per_step, approx_wrappers, approx_card, mt_wrappers
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3662,6 +4481,13 @@ def main():
     _log(f'{source}: {hgmma[source]} HGMMA instructions; ptxas: '
          + _ptxas_summary(path))
 
+  if '--anchor-seeds' in sys.argv[1:]:
+    seeds = int(sys.argv[sys.argv.index('--anchor-seeds') + 1])
+    sweep, failures = _anchor_sweep(seeds)
+    print(json.dumps({'anchor_sweep': sweep, 'failures': failures,
+                      'card': card}))
+    return 1 if failures else 0
+
   # Phase 3: kernel vs plain on the card, bitwise.
   gen = torch.Generator().manual_seed(SEED)
   cases = [(f'flagship_top{n}', B, L, 2, n, 'random') for n in (1, 5, 10, L)]
@@ -3678,11 +4504,17 @@ def main():
   cases += [(f'list_size_{l}_k{k}_top{n}', 5, l, k, n, 'edges')
             for l in (1, 31, 32, 33, 257) for k in (1, 3)
             for n in sorted({1, l})]
+  # The ideal-DCG sort of a Gumbel loss (phase 21): B x 8 sampled lists of
+  # tied graded labels, one channel.
+  cases += [('gumbel_lists', B * 8, L, 1, L, 'gumbel')]
   edge_gen = torch.Generator().manual_seed(SEED + 1)
+  case_gens = {'edges': edge_gen,
+               'gumbel': torch.Generator().manual_seed(SEED + 30)}
   max_abs_err = 0.0
   for name, b, l, k, topn, data in cases:
     scores, mask, values = (t.to(dev) for t in _sort_case(
-        edge_gen if data == 'edges' else gen, b, l, k, data))
+        case_gens.get(data, gen), b, l, k,
+        'ties' if data == 'gumbel' else data))
     got_sorted, got_ranks = cuda_sort.sorted_values_and_ranks(
         scores, values, mask, topn)
     want_sorted, want_ranks = cuda_sort.sorted_values_and_ranks_reference(
@@ -3892,6 +4724,15 @@ def main():
   eval_launches = cuda_sort.sorted_values_and_ranks.launches
   if eval_launches == 0:
     _fail('the evaluation phase never launched the sort kernel')
+  # Phase 21: the loss zoo and multi-task training; counts from 0 here.
+  _reset_all_launches()
+  (zoo_numbers, zoo_per_step, zoo_approx_wrappers, zoo_approx_card,
+   zoo_mt_wrappers) = _zoo_phase()
+  zoo_launches = steps.kernel_launch_counts()
+  for name in ('sorted_values_and_ranks', 'layer_forward', 'bwd_stats',
+               'bwd_mats', 'pairwise_sums_forward', 'pairwise_sums_backward'):
+    if zoo_launches[name] == 0:
+      _fail(f'the loss zoo phase never launched {name}')
   timings = {
       'build_s': build_s, 'hgmma': hgmma,
       'fused': fused_times, **train_times,
@@ -3907,7 +4748,7 @@ def main():
       'eval_lists_per_s': B / eval_step_ms * 1e3,
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
       'kstep': kstep, 'pipeline': pipeline_numbers, 'elwc': elwc_numbers,
-      'eval': eval_numbers, 'card': card}
+      'eval': eval_numbers, 'zoo': zoo_numbers, 'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
@@ -4043,6 +4884,20 @@ def main():
     entry['launches_elwc_resumed_device'] = elwc_device[entry['name']]
     entry['launches_elwc_tokens_wrapper'] = token_launches[entry['name']]
     entry['launches_elwc_tokens_device'] = token_device[entry['name']]
+    # Phase 21: the wrappers' count over the whole phase, a step of each
+    # key (what its capture recorded), the approx NDCG pipeline's profiled
+    # run (wrapper and card) and the multi-task pipeline.
+    entry['launches_zoo_phase'] = zoo_launches[entry['name']]
+    entry['launches_zoo_per_step'] = {
+        k: v[entry['name']] for k, v in zoo_per_step.items()
+        if v.get(entry['name'])}
+    entry['launches_zoo_approx_pipeline_wrapper'] = zoo_approx_wrappers[
+        entry['name']]
+    entry['launches_zoo_approx_pipeline_device'] = zoo_approx_card[
+        entry['name']]
+    entry['launches_zoo_multitask_wrapper'] = zoo_mt_wrappers[entry['name']]
+  kernels[0]['launches_zoo_card_per_step'] = {
+      k: zoo_numbers['keys'][k]['sort_launches_card'] for k in ZOO_SORT_KEYS}
   print(card)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

@@ -1,13 +1,23 @@
 """Carries a JAX package model's variables over to the port.
 
-``from_flax`` maps the ``{'params', 'batch_stats'}`` tree of
-``ranking_tpu.models.RankingModel(DNNScorer(...))`` or
-``RankingModel(EmbeddingDNNScorer(...))``, given as numpy arrays, to the
-``state_dict`` of the port's model of the same kind. The tower lies at
-``scorer/Tower_0`` (``scorer.tower.``), or at ``scorer/dnn/Tower_0``
-(``scorer.dnn.tower.``) under an ``EmbeddingDNNScorer``, whose tables
-``scorer/embed_<f>/embedding`` are ``scorer.embed_<f>.embedding``. In the
-tower:
+``from_flax`` maps the ``{'params', 'batch_stats'}`` tree of a
+``ranking_tpu.models.RankingModel`` over a ``DNNScorer``, an
+``EmbeddingDNNScorer`` or a ``MultiTaskScorer``, given as numpy arrays, to
+the ``state_dict`` of the port's model of the same kind. The DNN tower lies
+at one of these flax paths under ``params`` (and ``batch_stats``):
+
+* ``scorer/Tower_0`` -> ``scorer.tower.`` (``DNNScorer``);
+* ``scorer/dnn/Tower_0`` -> ``scorer.dnn.tower.`` (``EmbeddingDNNScorer``,
+  whose tables ``scorer/embed_<f>/embedding`` are
+  ``scorer.embed_<f>.embedding``);
+* ``scorer/DNNScorer_0/Tower_0`` -> ``scorer.shared.tower.``
+  (``MultiTaskScorer`` with the body built inside);
+* ``scorer/body/Tower_0`` -> ``scorer.body.tower.`` and
+  ``scorer/body/dnn/Tower_0`` -> ``scorer.body.dnn.tower.``
+  (``MultiTaskScorer`` over a given ``DNNScorer`` or ``EmbeddingDNNScorer``
+  body, whose tables are ``scorer.body.embed_<f>.embedding``).
+
+In the tower:
 
 * ``Dense_i/kernel`` ``[in, out]`` -> ``dense.i.weight`` ``[out, in]``,
   ``Dense_i/bias`` -> ``dense.i.bias``; the output layer is
@@ -35,8 +45,25 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_PREFIX = 'scorer.tower.'
-_EMBEDDING_PREFIX = 'scorer.dnn.tower.'
+# (flax path of the tower under the model's variables, the port's prefix
+# of its parameters); the tables of an embedding scorer lie beside its
+# 'dnn' at the same level.
+_TOWERS = (
+    (('scorer', 'Tower_0'), 'scorer.tower.'),
+    (('scorer', 'dnn', 'Tower_0'), 'scorer.dnn.tower.'),
+    (('scorer', 'DNNScorer_0', 'Tower_0'), 'scorer.shared.tower.'),
+    (('scorer', 'body', 'Tower_0'), 'scorer.body.tower.'),
+    (('scorer', 'body', 'dnn', 'Tower_0'), 'scorer.body.dnn.tower.'),
+)
+_TABLE = re.compile(r'(scorer(?:\.body)?)\.(embed_[^.]+)\.embedding')
+
+
+def _at(tree: Mapping[str, Any], path) -> Any:
+  for name in path:
+    if not isinstance(tree, Mapping) or name not in tree:
+      return None
+    tree = tree[name]
+  return tree
 
 
 def _indexed(tree: Mapping[str, Any], kind: str) -> Dict[int, Any]:
@@ -55,22 +82,25 @@ def _tensor(x) -> torch.Tensor:
 def from_flax(variables: Mapping[str, Any],
               input_batch_norm: bool = False) -> 'OrderedDict[str, torch.Tensor]':
   """The port's ``state_dict`` for a flax DNN ranking model's variables."""
-  scorer = variables.get('params', {}).get('scorer', {})
-  stats = variables.get('batch_stats', {}).get('scorer', {})
-  prefix = _PREFIX
+  params = variables.get('params', {})
+  stats = variables.get('batch_stats', {})
+  found = [(path, prefix) for path, prefix in _TOWERS
+           if _at(params, path) is not None]
+  if len(found) != 1:
+    raise ValueError(
+        'expected the variables of RankingModel over a DNNScorer, an '
+        'EmbeddingDNNScorer or a MultiTaskScorer: exactly one of '
+        + ', '.join('params/' + '/'.join(p) for p, _ in _TOWERS)
+        + f'; found {["/".join(p) for p, _ in found]}')
+  path, prefix = found[0]
   state = OrderedDict()
-  if 'dnn' in scorer:
-    scorer, stats, prefix = scorer['dnn'], stats.get('dnn', {}), \
-        _EMBEDDING_PREFIX
-    for name, leaf in variables['params']['scorer'].items():
+  owner = path[:-2] if path[-2] == 'dnn' else None
+  if owner is not None:
+    for name, leaf in _at(params, owner).items():
       if name.startswith('embed_'):
-        state[f'scorer.{name}.embedding'] = _tensor(leaf['embedding'])
-  if 'Tower_0' not in scorer:
-    raise ValueError('expected the variables of RankingModel(DNNScorer(...)) '
-                     'or RankingModel(EmbeddingDNNScorer(...)): '
-                     'params/scorer/Tower_0 or params/scorer/dnn/Tower_0 is '
-                     'missing')
-  state.update(_tower_state(scorer['Tower_0'], stats.get('Tower_0', {}),
+        state['.'.join(owner + (name, 'embedding'))] = _tensor(
+            leaf['embedding'])
+  state.update(_tower_state(_at(params, path), _at(stats, path) or {},
                             prefix, input_batch_norm))
   return state
 
@@ -102,6 +132,12 @@ def _tower_state(tower, stats, prefix: str,
   return state
 
 
+def _put(tree: Dict[str, Any], path, value) -> None:
+  for name in path[:-1]:
+    tree = tree.setdefault(name, {})
+  tree[path[-1]] = value
+
+
 def to_flax(named: Mapping[str, torch.Tensor],
             input_batch_norm: bool = False) -> Dict[str, Any]:
   """The flax ``{'params', 'batch_stats'}`` tree (numpy leaves) of tensors
@@ -111,50 +147,45 @@ def to_flax(named: Mapping[str, torch.Tensor],
   are left out of the tree; ``num_batches_tracked`` has no flax
   counterpart.
   """
-  params: Dict[str, Dict[str, np.ndarray]] = {}
-  stats: Dict[str, Dict[str, np.ndarray]] = {}
-  tables: Dict[str, Dict[str, np.ndarray]] = {}
+  tree: Dict[str, Any] = {}
   leaves = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
             'running_mean': ('batch_stats', 'mean'),
             'running_var': ('batch_stats', 'var')}
-  prefixes = set()
+  # Longest prefix first: 'scorer.body.dnn.tower.' before 'scorer.tower.'.
+  towers = sorted(_TOWERS, key=lambda t: -len(t[1]))
+  paths = set()
   for name, tensor in named.items():
     if tensor is None or name.endswith('num_batches_tracked'):
       continue
     value = tensor.detach().to('cpu', torch.float32).numpy()
-    table = re.fullmatch(r'scorer\.(embed_[^.]+)\.embedding', name)
+    table = _TABLE.fullmatch(name)
     if table:
-      tables[table.group(1)] = {'embedding': value}
+      _put(tree, ('params',) + tuple(table.group(1).split('.'))
+           + (table.group(2), 'embedding'), value)
       continue
-    prefix = next((p for p in (_PREFIX, _EMBEDDING_PREFIX)
-                   if name.startswith(p)), None)
-    if prefix is None:
-      raise ValueError(f'{name!r} is not a parameter of the DNN tower')
-    prefixes.add(prefix)
+    path, prefix = next(((p, q) for p, q in towers if name.startswith(q)),
+                        (None, None))
+    if path is None:
+      raise ValueError(f'{name!r} is not a parameter of a DNN tower')
+    paths.add(path)
     parts = name[len(prefix):].split('.')
     if parts[0] == 'dense':
-      layer = params.setdefault(f'Dense_{parts[1]}', {})
-      layer['kernel' if parts[2] == 'weight' else 'bias'] = (
-          value.T.copy() if parts[2] == 'weight' else value)
+      leaf = 'kernel' if parts[2] == 'weight' else 'bias'
+      _put(tree, ('params',) + path + (f'Dense_{parts[1]}', leaf),
+           value.T.copy() if parts[2] == 'weight' else value)
       continue
     if parts[0] == 'input_bn':
       index, leaf = 0, parts[1]
     elif parts[0] == 'bn':
       index, leaf = int(parts[1]) + int(input_batch_norm), parts[2]
     else:
-      raise ValueError(f'{name!r} is not a parameter of the DNN tower')
+      raise ValueError(f'{name!r} is not a parameter of a DNN tower')
     collection, flax_leaf = leaves[leaf]
-    target = params if collection == 'params' else stats
-    target.setdefault(f'BatchNorm_{index}', {})[flax_leaf] = value
-  if len(prefixes) > 1:
-    raise ValueError('parameters of a DNNScorer and of an EmbeddingDNNScorer '
-                     'tower are mixed')
-  nested = bool(tables) or prefixes == {_EMBEDDING_PREFIX}
-  wrap = (lambda t: {'dnn': {'Tower_0': t}}) if nested else (  # noqa: E731
-      lambda t: {'Tower_0': t})
-  tree: Dict[str, Any] = {'params': {'scorer': {**wrap(params), **tables}}}
-  if stats:
-    tree['batch_stats'] = {'scorer': wrap(stats)}
+    _put(tree, (collection,) + path + (f'BatchNorm_{index}', flax_leaf),
+         value)
+  if len(paths) > 1:
+    raise ValueError('parameters of more than one tower layout are mixed: '
+                     + ', '.join(sorted('/'.join(p) for p in paths)))
   return tree
 
 

@@ -1,9 +1,10 @@
-"""The DNN scorer and the top-level ranking model.
+"""The DNN scorers and the top-level ranking model.
 
-The port's copy of ``DNNScorer``, ``EmbeddingDNNScorer`` and
-``RankingModel`` from ``ranking_tpu/models/scorers.py`` (the reference's
-tensorflow_ranking/python/keras/model.py), as ``nn.Module``s mapping
-``(context, examples, mask) -> logits [B, L]``, in eval and train mode.
+The port's copy of ``DNNScorer``, ``EmbeddingDNNScorer``,
+``MultiTaskScorer`` and ``RankingModel`` from ``ranking_tpu/models/
+scorers.py`` (the reference's tensorflow_ranking/python/keras/model.py), as
+``nn.Module``s mapping ``(context, examples, mask) -> logits [B, L]`` (a
+dict of them for ``MultiTaskScorer``), in eval and train mode.
 """
 
 from __future__ import annotations
@@ -119,6 +120,7 @@ class EmbeddingDNNScorer(nn.Module):
     if mesh is not None:
       raise NotImplementedError('EmbeddingDNNScorer(mesh=...): row-sharded '
                                 'tables are not ported yet')
+    self.output_units = output_units
     generator = torch.Generator() if generator is None else generator
     self.vocab_names = sorted(vocab_sizes)
     for name in self.vocab_names:
@@ -142,6 +144,62 @@ class EmbeddingDNNScorer(nn.Module):
               for k, v in features.items()}
     return self.dnn(embed(context), embed(examples), mask, training=training,
                     generator=generator)
+
+
+class MultiTaskScorer(nn.Module):
+  """A shared-body scorer with one logit head a task (keras/model.py:726-777,
+  the reference's multi-task ``UnivariateScorer`` dict output).
+
+  The body is ``body`` when given (any scorer with ``len(task_names)``
+  output units; a ``DNNScorer`` or an ``EmbeddingDNNScorer``), else a
+  ``DNNScorer`` built here over ``in_features`` as the submodule
+  ``shared``. The forward returns ``{task: [B, L] logits}``, head i being
+  the body's output unit i.
+  """
+
+  def __init__(
+      self,
+      task_names: Sequence[str],
+      hidden_layer_dims: Sequence[int] = (),
+      in_features: Optional[int] = None,
+      body: Optional[nn.Module] = None,
+      activation: str = 'relu',
+      use_batch_norm: bool = True,
+      batch_norm_momentum: float = 0.999,
+      dropout: float = 0.5,
+      generator: Optional[torch.Generator] = None,
+      dtype: torch.dtype = torch.float32,
+  ):
+    super().__init__()
+    self.task_names = tuple(task_names)
+    if body is not None:
+      units = getattr(body, 'output_units', None)
+      if units is not None and units != len(self.task_names):
+        raise ValueError(
+            f'body.output_units={units} != {len(self.task_names)} tasks')
+      self.body = body
+      self._body_name = 'body'
+    else:
+      if in_features is None:
+        raise ValueError('MultiTaskScorer without a body needs in_features')
+      self.shared = DNNScorer(
+          hidden_layer_dims, in_features=in_features,
+          output_units=len(self.task_names), activation=activation,
+          use_batch_norm=use_batch_norm,
+          batch_norm_momentum=batch_norm_momentum, dropout=dropout,
+          generator=generator, dtype=dtype)
+      self._body_name = 'shared'
+
+  def forward(self, context: FeatureDict, examples: FeatureDict,
+              mask: Tensor, training: bool = False,
+              generator: Optional[torch.Generator] = None
+              ) -> Dict[str, Tensor]:
+    scorer = getattr(self, self._body_name)
+    extra = {} if generator is None else {'generator': generator}
+    logits = scorer(context, examples, mask, training=training, **extra)
+    if logits.ndim == 2:  # a 1-unit body returns [B, L]
+      logits = logits[..., None]
+    return {name: logits[:, :, i] for i, name in enumerate(self.task_names)}
 
 
 class RankingModel(nn.Module):

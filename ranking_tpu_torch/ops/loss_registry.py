@@ -1,15 +1,16 @@
 """String-keyed loss registry and weighted multi-loss factory.
 
 The port's copy of ``ranking_tpu/ops/loss_registry.py`` (the reference's
-tensorflow_ranking/python/losses.py): the same ``RankingLossKey`` strings,
-``make_loss_fn`` building ``(labels, logits, features=None, generator=None)
--> scalar`` from weighted losses, and ``make_loss_metric_fn`` turning a loss
-into a per-list eval stream. ``softmax_loss`` and the four pairwise keys are
-ported; every other key raises "not ported yet", as ``build_metric`` does
-for its keys. ``yeti_logistic_loss`` is among those: its inputs go through
-the Gumbel sampler, which waits for the rest of the loss zoo (the Yeti
-lambda weight itself is ported: ``PairwiseLogisticLoss(lambda_weight=
-create_yeti_dcg_lambda_weight())``).
+tensorflow_ranking/python/losses.py): the same 25 ``RankingLossKey``
+strings, ``build_loss`` for each of them, ``make_loss_fn`` building
+``(labels, logits, features=None, generator=None) -> scalar`` from weighted
+losses, with one shared Gumbel sample feeding every ``gumbel_*`` and
+``yeti_*`` key of a call, and ``make_loss_metric_fn`` turning a loss into a
+per-list eval stream. The JAX package's defaults hold: ``approx_ndcg_loss``,
+``approx_mrr_loss`` and ``gumbel_approx_ndcg_loss`` build the
+scale-invariant recipe (``scale_invariant=False`` restores the reference's),
+and ``yeti_logistic_loss`` takes the Yeti DCG lambda weight unless given
+``NO_LAMBDA``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ranking_tpu_torch.ops import lambda_weights as lw
 from ranking_tpu_torch.ops import losses as losses_lib
+from ranking_tpu_torch.ops import sorting
 from ranking_tpu_torch.ops.reductions import Reduction
 from ranking_tpu_torch.utils import list_ops
 
@@ -63,6 +65,14 @@ class RankingLossKey:
             if k.isupper() and isinstance(v, str)]
 
 
+# Keys whose inputs go through the shared Gumbel sampler first.
+_GUMBEL_KEYS = frozenset({
+    RankingLossKey.YETI_LOGISTIC_LOSS,
+    RankingLossKey.GUMBEL_APPROX_NDCG_LOSS,
+    RankingLossKey.GUMBEL_NEURAL_SORT_CROSS_ENTROPY_LOSS,
+    RankingLossKey.GUMBEL_NEURAL_SORT_NDCG_LOSS,
+})
+
 # Keys that accept a lambda weight.
 _LAMBDA_KEYS = frozenset({
     RankingLossKey.PAIRWISE_HINGE_LOSS,
@@ -79,9 +89,24 @@ _LAMBDA_KEYS = frozenset({
 })
 
 # Explicit no-lambda override: suppresses a key-specific default lambda
-# weight (the keras YetiLogisticLoss defaults to the neighbor-pair DCG
-# weight, the python-generation factory applies none to the yeti key).
+# weight. The keras YetiLogisticLoss defaults to the neighbor-pair DCG
+# weight (keras/losses.py:672), which build_loss mirrors on
+# lambda_weight=None; the python-generation factory applies no lambda
+# weight to the yeti key (python/losses.py:133), which NO_LAMBDA gives.
 NO_LAMBDA = 'no_lambda'
+
+# The keys built as the scale-invariant Approx* recipe by default (per-list
+# logit standardization, sharpness 0.25: losses._standardize_logits). The
+# JAX package measured the reference's fixed /0.1 recipe saturating the rank
+# sigmoid at realistic list sizes, and the standardized form ahead at every
+# list size from 10 to 200 (SI_SWEEP.json, APPROX_NDCG_DIAG.json).
+# scale_invariant=False (temperature then 0.1) builds the reference's.
+_SCALE_INVARIANT_DEFAULT_KEYS = frozenset({
+    RankingLossKey.APPROX_NDCG_LOSS,
+    RankingLossKey.APPROX_MRR_LOSS,
+    RankingLossKey.GUMBEL_APPROX_NDCG_LOSS,
+})
+SCALE_INVARIANT_TEMPERATURE = 0.25
 
 _LOSS_CLASSES: Dict[str, Callable[..., losses_lib.RankingLoss]] = {
     RankingLossKey.PAIRWISE_HINGE_LOSS: losses_lib.PairwiseHingeLoss,
@@ -89,7 +114,31 @@ _LOSS_CLASSES: Dict[str, Callable[..., losses_lib.RankingLoss]] = {
     RankingLossKey.PAIRWISE_SOFT_ZERO_ONE_LOSS:
         losses_lib.PairwiseSoftZeroOneLoss,
     RankingLossKey.PAIRWISE_MSE_LOSS: losses_lib.PairwiseMSELoss,
+    RankingLossKey.YETI_LOGISTIC_LOSS: losses_lib.PairwiseLogisticLoss,
+    RankingLossKey.CIRCLE_LOSS: losses_lib.CircleLoss,
     RankingLossKey.SOFTMAX_LOSS: losses_lib.SoftmaxLoss,
+    RankingLossKey.CALIBRATED_SOFTMAX_LOSS: losses_lib.CalibratedSoftmaxLoss,
+    RankingLossKey.POLY_ONE_SOFTMAX_LOSS: losses_lib.PolyOneSoftmaxLoss,
+    RankingLossKey.UNIQUE_SOFTMAX_LOSS: losses_lib.UniqueSoftmaxLoss,
+    RankingLossKey.SIGMOID_CROSS_ENTROPY_LOSS:
+        losses_lib.SigmoidCrossEntropyLoss,
+    RankingLossKey.MEAN_SQUARED_LOSS: losses_lib.MeanSquaredLoss,
+    RankingLossKey.LIST_MLE_LOSS: losses_lib.ListMLELoss,
+    RankingLossKey.APPROX_NDCG_LOSS: losses_lib.ApproxNDCGLoss,
+    RankingLossKey.APPROX_MRR_LOSS: losses_lib.ApproxMRRLoss,
+    RankingLossKey.GUMBEL_APPROX_NDCG_LOSS: losses_lib.ApproxNDCGLoss,
+    RankingLossKey.NEURAL_SORT_CROSS_ENTROPY_LOSS:
+        losses_lib.NeuralSortCrossEntropyLoss,
+    RankingLossKey.GUMBEL_NEURAL_SORT_CROSS_ENTROPY_LOSS:
+        losses_lib.NeuralSortCrossEntropyLoss,
+    RankingLossKey.NEURAL_SORT_NDCG_LOSS: losses_lib.NeuralSortNDCGLoss,
+    RankingLossKey.GUMBEL_NEURAL_SORT_NDCG_LOSS:
+        losses_lib.NeuralSortNDCGLoss,
+    RankingLossKey.ORDINAL_LOSS: losses_lib.OrdinalLoss,
+    RankingLossKey.MULTI_CLASS_LOSS: losses_lib.MultiClassLoss,
+    RankingLossKey.CLICK_EM_LOSS: losses_lib.ClickEMLoss,
+    RankingLossKey.MIXTURE_EM_LOSS: losses_lib.MixtureEMLoss,
+    RankingLossKey.COUPLED_RANK_DISTIL_LOSS: losses_lib.CoupledRankDistilLoss,
 }
 
 
@@ -99,24 +148,25 @@ def build_loss(
     name: str = '',
     **params: Any,
 ) -> losses_lib.RankingLoss:
-  """Instantiates the loss object behind a key (the softmax and the four
-  pairwise losses so far).
+  """Instantiates the loss object behind a key.
 
-  ``params`` are loss-specific constructor arguments (temperature, ...).
-  Keys that take no lambda weight ignore it, as in the reference factory.
-  ``lambda_weight=NO_LAMBDA`` suppresses any key-specific default lambda
-  weight (see NO_LAMBDA).
+  ``params`` are loss-specific constructor arguments (temperature, gamma,
+  margin, epsilon, ordinal_size, ...). Keys that take no lambda weight
+  ignore it, as in the reference factory. ``lambda_weight=NO_LAMBDA``
+  suppresses any key-specific default lambda weight (see NO_LAMBDA).
   """
-  if loss_key not in RankingLossKey.all_keys():
+  if loss_key not in _LOSS_CLASSES:
     raise ValueError(f'Invalid loss_key: {loss_key!r}. '
                      f'Valid keys: {RankingLossKey.all_keys()}')
-  if loss_key not in _LOSS_CLASSES:
-    raise NotImplementedError(
-        f'loss {loss_key!r} is not ported yet; the PyTorch port has '
-        f'{sorted(_LOSS_CLASSES)}')
   kw: Dict[str, Any] = dict(name=name or loss_key, **params)
+  if loss_key in _SCALE_INVARIANT_DEFAULT_KEYS:
+    kw.setdefault('scale_invariant', True)
+    if kw['scale_invariant']:
+      kw.setdefault('temperature', SCALE_INVARIANT_TEMPERATURE)
   if isinstance(lambda_weight, str) and lambda_weight == NO_LAMBDA:
     lambda_weight = None
+  elif loss_key == RankingLossKey.YETI_LOGISTIC_LOSS and lambda_weight is None:
+    lambda_weight = lw.create_yeti_dcg_lambda_weight()
   if loss_key in _LAMBDA_KEYS and lambda_weight is not None:
     kw['lambda_weight'] = lambda_weight
   return _LOSS_CLASSES[loss_key](**kw)
@@ -140,15 +190,19 @@ def make_loss_fn(
     reduction: Reduction = Reduction.SUM_BY_NONZERO_WEIGHTS,
     name: Optional[str] = None,
     params: Optional[Mapping[str, Any]] = None,
+    gumbel_params: Optional[Mapping[str, Any]] = None,
 ) -> LossFn:
   """Builds ``loss_fn(labels, logits, features=None, generator=None) ->
   scalar``.
 
   Mirrors tensorflow_ranking/python/losses.py:265-311, including the
-  ``'softmax_loss:0.9,sigmoid_cross_entropy_loss:0.1'`` encoded form.
-  ``generator`` drives the tie shuffles of the lambda weights; None is
-  deterministic. Every loss draws from the one generator in turn (a
-  generator is a stream, so there is no per-loss fold as with a JAX key).
+  ``'softmax_loss:0.9,sigmoid_cross_entropy_loss:0.1'`` encoded form and one
+  Gumbel sample (``gumbel_params``: ``sample_size``, default 8, and
+  ``temperature``, default 1) shared by every gumbel/yeti key of a call.
+  ``generator`` draws that sample first, then each loss's tie shuffles in
+  turn (a generator is a stream: there is no per-loss fold as with a JAX
+  key). With None every call draws the same numbers: the kept draws of
+  seed 17 for the sample, of seed 37 for the shuffles.
   """
   reduction = Reduction(reduction)
   if reduction == Reduction.NONE:
@@ -169,16 +223,31 @@ def make_loss_fn(
     raise ValueError('loss_keys and loss_weights must have the same size.')
 
   params = dict(params or {})
+  gumbel_params = dict(gumbel_params or {})
+  gumbel_sample_size = gumbel_params.pop('sample_size', 8)
+  gumbel_temperature = gumbel_params.pop('temperature', 1.0)
+  if gumbel_params:
+    raise ValueError(f'Unknown gumbel_params: {sorted(gumbel_params)}')
+
   loss_objs = [build_loss(k, lambda_weight, name or k, **params)
                for k in loss_keys]
+  needs_gumbel = any(k in _GUMBEL_KEYS for k in loss_keys)
 
   def _loss_fn(labels, logits, features=None, generator=None):
-    logits = torch.as_tensor(logits).to(torch.float32)
-    labels = torch.as_tensor(labels, device=logits.device).to(torch.float32)
+    logits = losses_lib._float(logits)
+    labels = losses_lib._float(labels, logits)
     weights = _weights_from(features, weights_feature_name, logits)
-    total = torch.zeros((), dtype=torch.float32, device=logits.device)
-    for i, loss_obj in enumerate(loss_objs):
-      value = loss_obj(labels, logits, weights=weights, reduction=reduction,
+    gbl = None
+    if needs_gumbel:
+      # Without a generator: the kept draws of seed 17, the JAX package's
+      # fallback key (loss_registry.py:248-249).
+      gbl = sorting.gumbel_sample_lists(
+          labels, logits, generator, weights=weights,
+          sample_size=gumbel_sample_size, temperature=gumbel_temperature)
+    total = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    for i, (loss_key, loss_obj) in enumerate(zip(loss_keys, loss_objs)):
+      l, s, w = gbl if loss_key in _GUMBEL_KEYS else (labels, logits, weights)
+      value = loss_obj(l, s, weights=w, reduction=reduction,
                        generator=generator)
       if loss_weights:
         value = value * loss_weights[i]
@@ -200,16 +269,21 @@ def make_loss_metric_fn(
   Returns ``metric_fn(labels, predictions, features=None) ->
   (per_elem_losses, per_elem_weights)`` whose weighted mean equals the
   reference's ``eval_metric`` (losses_impl.py:837-860): per list for the
-  softmax loss, per pair ``[B, L, L]`` for the pairwise losses.
+  listwise losses, per pair ``[B, L, L]`` for the pairwise losses, per item
+  for the pointwise ones. A gumbel key scores its loss on the lists as
+  given, as the JAX package's stream does.
   """
   loss_obj = build_loss(loss_key, lambda_weight, name or loss_key, **params)
 
   def _metric_fn(labels, predictions, features=None):
-    predictions = torch.as_tensor(predictions).to(torch.float32)
-    labels = torch.as_tensor(labels,
-                             device=predictions.device).to(torch.float32)
+    predictions = losses_lib._float(predictions)
+    labels = losses_lib._float(labels, predictions)
     weights = _weights_from(features, weights_feature_name, predictions)
     if isinstance(loss_obj, losses_lib.SoftmaxLoss):
+      # per_list folds the weights and lambda weights into the labels, and
+      # for CalibratedSoftmaxLoss appends the virtual anchor: going through
+      # precompute/unreduced directly would score plain softmax there, a
+      # different objective than the one trained.
       return loss_obj.per_list(labels, predictions, weights=weights)
     losses, loss_weights = loss_obj.unreduced(
         labels, loss_obj.get_logits(predictions))

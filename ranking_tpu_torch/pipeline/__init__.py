@@ -20,6 +20,8 @@ _NAMES = {
     'PipelineHparams': ('hparams', 'PipelineHparams'),
     'from_yaml': ('hparams', 'from_yaml'),
     'LibSVMDatasetBuilder': ('pipeline', 'LibSVMDatasetBuilder'),
+    'MultiLabelDatasetBuilder': ('pipeline', 'MultiLabelDatasetBuilder'),
+    'MultiTaskPipeline': ('pipeline', 'MultiTaskPipeline'),
     'RankingPipeline': ('pipeline', 'RankingPipeline'),
     'SimpleDatasetBuilder': ('pipeline', 'SimpleDatasetBuilder'),
     'SimplePipeline': ('pipeline', 'SimplePipeline'),

@@ -16,8 +16,10 @@ converts them first (``convert.from_flax``). There is no mesh: one card.
 A dataset builder is any object with ``train_batches()`` and
 ``valid_batches()`` iterators of ``RankingBatch``; one whose
 ``train_batches`` takes ``skip_batches`` resumes without parsing the
-batches it skips. ``MultiLabelDatasetBuilder`` and ``MultiTaskPipeline``
-are not ported yet.
+batches it skips. ``MultiLabelDatasetBuilder`` gives dict labels, one a
+task, and ``MultiTaskPipeline`` trains a dict of task losses (a
+``SimplePipeline`` does too, given a dict ``hparams.loss``) with
+``task/metric`` names scored per task.
 """
 
 from __future__ import annotations
@@ -140,6 +142,31 @@ class SimpleDatasetBuilder:
                          self._valid_list_size, shuffle=False, epochs=1)
 
 
+class MultiLabelDatasetBuilder(SimpleDatasetBuilder):
+  """Dict-label dataset builder for multi-task training
+  (keras/pipeline.py:1120-1221).
+
+  ``label_spec`` maps task names to example label feature names; each is
+  parsed, padded with -1 and popped into ``batch.labels[task]``, ready for
+  ``MultiTaskPipeline``'s dict losses. The label features must be in
+  ``example_feature_spec``.
+  """
+
+  def __init__(self, context_feature_spec, example_feature_spec,
+               label_spec: Mapping[str, str], hparams: DatasetHparams,
+               seed: Optional[int] = None):
+    if not label_spec:
+      raise ValueError('label_spec must map at least one task to a label '
+                       'feature name.')
+    missing = [name for name in label_spec.values()
+               if name not in example_feature_spec]
+    if missing:
+      raise ValueError(
+          f'label features {missing} missing from example_feature_spec.')
+    super().__init__(context_feature_spec, example_feature_spec, hparams,
+                     seed=seed, label_feature_name=dict(label_spec))
+
+
 class LibSVMDatasetBuilder:
   """In-memory LIBSVM dataset builder for the pipelines.
 
@@ -176,6 +203,9 @@ class SimplePipeline:
   """Single-task pipeline with the reference's default metric suite:
   NDCG@1/5/10 and full-list NDCG (keras/pipeline.py:659-730).
 
+  A dict ``hparams.loss`` (``{task: loss_key}``) trains a multi-task
+  model, each task's loss weighted by a dict ``hparams.loss_weights``
+  (default 1), in the train step and in the validation loss alike.
   ``device`` (default ``'cuda'``; without a card it raises) is where the
   model, its optimizers and every step live.
   """
@@ -195,15 +225,15 @@ class SimplePipeline:
     self.hparams = hparams
     self.metric_fns = dict(metric_fns) if metric_fns else (
         self._default_metrics())
+    loss_kwargs = dict(reduction=Reduction(hparams.loss_reduction),
+                       weights_feature_name=hparams.weights_feature_name)
     if loss_fn is not None:
       self.loss_fn = loss_fn
     elif isinstance(hparams.loss, Mapping):
-      raise NotImplementedError(
-          'a dict of task losses (MultiTaskPipeline) is not ported yet')
+      self.loss_fn = {task: loss_registry.make_loss_fn(key, **loss_kwargs)
+                      for task, key in hparams.loss.items()}
     else:
-      self.loss_fn = loss_registry.make_loss_fn(
-          hparams.loss, reduction=Reduction(hparams.loss_reduction),
-          weights_feature_name=hparams.weights_feature_name)
+      self.loss_fn = loss_registry.make_loss_fn(hparams.loss, **loss_kwargs)
       if isinstance(hparams.loss_weights, (int, float)):
         # A scalar loss_weights scales the single loss.
         base_fn, w = self.loss_fn, float(hparams.loss_weights)
@@ -224,6 +254,12 @@ class SimplePipeline:
             metric_registry.RankingMetricKey.NDCG, topn=topn,
             weights_feature_name=weighted)
     return fns
+
+  @property
+  def _task_weights(self) -> Optional[Mapping[str, float]]:
+    """A dict ``loss_weights``: the tasks' weights in the total loss."""
+    weights = self.hparams.loss_weights
+    return weights if isinstance(weights, Mapping) else None
 
   # -- build ---------------------------------------------------------------
 
@@ -261,10 +297,13 @@ class SimplePipeline:
         raise NotImplementedError(
             'lazy tables that no batch feature names need the '
             'dense-gradient lazy update, which is not ported yet')
-      step_fn = steps.make_sparse_train_step(self.loss_fn, efs,
-                                             device=self.device)
+      step_fn = steps.make_sparse_train_step(
+          self.loss_fn, efs, multi_task_weights=self._task_weights,
+          device=self.device)
     else:
-      step_fn = steps.make_train_step(self.loss_fn, device=self.device)
+      step_fn = steps.make_train_step(
+          self.loss_fn, multi_task_weights=self._task_weights,
+          device=self.device)
     self._train_step = step_fn
     # steps_per_execution (keras/pipeline.py:287-289): K steps a dispatch.
     self._multi_step = steps.make_multi_step(step_fn, device=self.device)
@@ -272,6 +311,7 @@ class SimplePipeline:
     # epochs of the run.
     self._eval_step = steps.GraphedEvalStep(
         steps.make_eval_step(self.metric_fns, loss_fn=self.loss_fn,
+                             multi_task_weights=self._task_weights,
                              device=self.device), self.device)
     return state
 
@@ -479,3 +519,18 @@ class RankingPipeline(SimplePipeline):
 
   def train_and_eval(self, verbose: bool = False):
     return self.train_and_validate(verbose=verbose)
+
+
+class MultiTaskPipeline(SimplePipeline):
+  """Dict-loss pipeline (keras/pipeline.py:733-830): ``hparams.loss =
+  {task: loss_key}``, optionally per-task ``loss_weights``; its default
+  suite is NDCG@1/5/10 and full NDCG for each task, as ``task/ndcg@k``."""
+
+  def _default_metrics(self):
+    fns = {}
+    for task in self.hparams.loss:
+      for topn in (1, 5, 10, None):
+        name = f'{task}/ndcg@{topn}' if topn else f'{task}/ndcg'
+        fns[name] = metric_registry.make_ranking_metric_fn(
+            metric_registry.RankingMetricKey.NDCG, topn=topn)
+    return fns

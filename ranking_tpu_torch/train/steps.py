@@ -75,15 +75,17 @@ def _make_total_loss(loss_fn, multi_task_weights):
         f'tasks are {sorted(loss_fn)}')
 
   def _total_loss(labels, logits, features, generator=None):
-    # Every task draws from the one generator in turn.
+    # Every task draws from the one generator in turn; without one, a loss
+    # fn is called as (labels, logits, features=...).
+    extra = {} if generator is None else {'generator': generator}
     if isinstance(loss_fn, Mapping):
       total = 0.0
       for task, fn in sorted(loss_fn.items()):
         w = 1.0 if not multi_task_weights else multi_task_weights.get(task, 1.)
         total = total + w * fn(labels[task], logits[task], features=features,
-                               generator=generator)
+                               **extra)
       return total
-    return loss_fn(labels, logits, features=features, generator=generator)
+    return loss_fn(labels, logits, features=features, **extra)
 
   return _total_loss
 
@@ -490,26 +492,53 @@ def make_multi_step(
   return multi_step
 
 
+def _task_inputs(name: str, batch: RankingBatch, logits):
+  """The logits and labels that the metric ``name`` scores: for a dict of
+  task logits, ``task/metric`` names route to that task (an unknown task
+  raises: a typo must not score the wrong head) and other names to the
+  first task in sorted order."""
+  if not isinstance(logits, Mapping):
+    return logits, batch.labels
+  task, sep, _ = name.partition('/')
+  if sep and task not in logits:
+    raise ValueError(f'Metric {name!r} routes to unknown task {task!r}; '
+                     f'model tasks: {sorted(logits)}')
+  first = lambda tree: next(iter(sorted(tree.items())))[1]  # noqa: E731
+  task_logits = logits[task] if sep else first(logits)
+  labels = batch.labels
+  if isinstance(labels, Mapping):
+    labels = labels[task] if sep else first(labels)
+  return task_logits, labels
+
+
 def make_eval_step(
     metric_fns: Mapping[str, MetricFn],
-    loss_fn: Optional[Callable[..., Tensor]] = None,
+    loss_fn: Optional[Any] = None,
+    multi_task_weights: Optional[Mapping[str, float]] = None,
     device: DeviceLike = 'cuda',
 ) -> Callable[..., Tuple[Dict[str, MeanState], Any]]:
   """Builds ``eval_step(model, batch, metric_states, num_valid_rows=None)
   -> (metric_states, logits)``.
 
   ``metric_fns`` maps display name -> fn from
-  ``ops.metric_registry.make_ranking_metric_fn``. The batch moves to
+  ``ops.metric_registry.make_ranking_metric_fn``. For a multi-task model
+  (dict logits and labels), ``task/metric`` names route to that task's
+  logits and labels; an unknown ``task/`` prefix raises, and a name
+  without ``/`` takes the first task in sorted order. The batch moves to
   ``device``; the model must already be there.
 
-  If ``loss_fn`` is given, ``loss_fn(labels, logits, features=...) ->
-  scalar`` streams into a reserved ``'loss'`` state weighted by the
-  batch's count of lists with a valid item (the reference's val_loss).
+  If ``loss_fn`` is given (as to ``make_train_step``: one fn, or a dict
+  ``{task: fn}`` weighted by ``multi_task_weights``), the total loss
+  streams into a reserved ``'loss'`` state weighted by the batch's count of
+  lists with a valid item (the reference's val_loss). It is computed
+  without a generator, as the JAX step passes no key.
   """
   device = resolve_device(device)
   if loss_fn is not None and 'loss' in metric_fns:
     raise ValueError("'loss' is reserved for the validation loss state; "
                      'rename the metric.')
+  total_loss = (None if loss_fn is None
+                else _make_total_loss(loss_fn, multi_task_weights))
 
   @torch.no_grad()
   def eval_step(model, batch: RankingBatch,
@@ -528,14 +557,16 @@ def make_eval_step(
     with list_ops.shared_sort_scope():
       out = {}
       for name, fn in metric_fns.items():
-        values, weights = fn(batch.labels, logits, features=batch.features)
+        task_logits, task_labels = _task_inputs(name, batch, logits)
+        values, weights = fn(task_labels, task_logits,
+                             features=batch.features)
         if num_valid_rows is not None:
           rows = torch.arange(weights.shape[0], device=device) < num_valid_rows
           weights = weights * rows.reshape(
               (-1,) + (1,) * (weights.ndim - 1)).to(weights.dtype)
         out[name] = metric_states[name].update(values, weights)
-    if loss_fn is not None:
-      loss = loss_fn(batch.labels, logits, features=batch.features)
+    if total_loss is not None:
+      loss = total_loss(batch.labels, logits, batch.features, None)
       # Weight by the batch's valid-list count so a ragged final batch
       # contributes proportionally; an all-padding batch gets weight 0 and
       # a zeroed value (its loss over no list is typically NaN).
@@ -568,8 +599,9 @@ class GraphedEvalStep:
   The graph reads and writes the metric states in its own buffer, in
   place: each call copies the states it is given into the buffer, and
   returns a copy of the buffer after the replay, so that what a caller
-  holds is never overwritten. The logits come back as a copy too. Replays
-  equal the eager step bit for bit.
+  holds is never overwritten. The logits come back as a copy too (a dict
+  of copies for a multi-task model, whose labels are a dict as well).
+  Replays equal the eager step bit for bit.
 
   The kernel wrappers count their launches where they run, and in a graph
   that is once, at capture: ``captured_launches()`` sums what the captures
@@ -664,8 +696,11 @@ class GraphedEvalStep:
     entry['replays'] += 1
     self.replays += 1
     held = buf.clone()
+    logits = entry['logits']
     return ({n: MeanState(held[i, 0], held[i, 1])
-             for i, n in enumerate(names)}, entry['logits'].clone())
+             for i, n in enumerate(names)},
+            ({k: v.clone() for k, v in logits.items()}
+             if isinstance(logits, Mapping) else logits.clone()))
 
   def captured_launches(self) -> Dict[str, int]:
     """What the captures recorded, by wrapper name, over all graphs."""

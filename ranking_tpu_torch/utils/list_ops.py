@@ -73,12 +73,16 @@ def is_label_valid(labels: Tensor) -> Tensor:
 
 
 def _shuffle_order(shape: Tuple[int, int], mask: Optional[Tensor],
-                   generator: torch.Generator, device) -> Tensor:
+                   generator: Optional[torch.Generator], device,
+                   tie_draws: Optional[Tensor] = None) -> Tensor:
   """Per-row permutation that shuffles every list and pushes masked
-  entries last: uniform keys in [0, 1), 2.0 added on masked entries, a
-  stable argsort."""
-  values = torch.rand(shape, generator=generator, dtype=torch.float32,
-                      device=generator.device).to(device)
+  entries last: uniform keys in [0, 1) (the generator's, or
+  ``tie_draws``), 2.0 added on masked entries, a stable argsort."""
+  if tie_draws is not None:
+    values = tie_draws.to(device=device, dtype=torch.float32)
+  else:
+    values = torch.rand(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device).to(device)
   if mask is not None:
     values = torch.where(mask.to(torch.bool), values, values + 2.0)
   return torch.argsort(values, dim=1, stable=True)
@@ -106,6 +110,7 @@ def sort_by_scores(
     topn: Optional[int] = None,
     mask: Optional[Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    tie_draws: Optional[Tensor] = None,
 ) -> List[Tensor]:
   """Sorts each feature tensor per list by descending ``scores``.
 
@@ -116,6 +121,9 @@ def sort_by_scores(
     mask: optional ``[B, L]`` bool; invalid entries are pushed to the end.
     generator: optional source of random tie-breaking (training-time parity
       with the reference's ``shuffle_ties=True``). None = deterministic.
+    tie_draws: optional ``[B, L]`` uniform [0, 1) draws that break ties as
+      a generator's would (the kept draws of a loss called without one,
+      ``sorting.fixed_draws``).
 
   Returns:
     List of tensors shaped ``[B, topn, ...]`` sorted by score.
@@ -124,13 +132,13 @@ def sort_by_scores(
   list_size = scores.shape[1]
   topn = list_size if topn is None else min(topn, list_size)
 
-  if generator is not None:
+  if generator is not None or tie_draws is not None:
     # The list is shuffled, the shuffled scores are sorted stably, and the
     # order is mapped back: ties land in the shuffle's order.
     if mask is not None:
       scores = torch.where(mask.to(torch.bool), scores, scores.min())
     shuffle = _shuffle_order(tuple(scores.shape), mask, generator,
-                             scores.device)
+                             scores.device, tie_draws)
     shuffled = torch.gather(scores, 1, shuffle)
     order = torch.sort(shuffled, dim=1, descending=True,
                        stable=True).indices[:, :topn]

@@ -589,3 +589,52 @@ def test_graphed_eval_step_follows_new_parameters_and_models(dev):
   assert graphed._pool != pool
   run(model())
   assert graphed.captures == 3 and graphed.replays == 9
+
+
+@pytest.mark.parametrize('key,random', [('gumbel_approx_ndcg_loss', True),
+                                        ('list_mle_loss', True),
+                                        ('approx_ndcg_loss', False)])
+def test_graphed_loss_zoo_steps_equal_eager_bitwise(dev, key, random):
+  """K replays of a captured train step == K eager steps bit for bit for a
+  Gumbel key and ListMLE drawing from a CUDA generator (registered with the
+  graph; the eager copy starts from a copy of its state), and for approx
+  NDCG with no generator (the kept draws, on the card before capture)."""
+  import copy
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.models import scorers
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  gen = torch.Generator().manual_seed(7)
+
+  def batches(k):
+    out = []
+    for _ in range(k):
+      labels = torch.randint(-1, 5, (16, 40), generator=gen).float()
+      x = torch.randn(16, 40, 12, generator=gen) * 3
+      out.append(batch_lib.batch_from_labels(labels, examples={'x': x}))
+    return steps.stack_batches(out).to(dev)
+
+  model = scorers.RankingModel(scorers.DNNScorer(
+      (64, 32), in_features=12, dropout=0.0, generator=gen),
+      transform_name='log1p')
+  step = steps.make_train_step(loss_registry.make_loss_fn(key), device=dev)
+  state = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                       device=dev)
+  rng = torch.Generator(device=dev).manual_seed(1) if random else None
+  graphed = steps.make_multi_step(step, device=dev)
+  eager = steps.make_multi_step(step, device=dev, eager=True)
+  state, _ = graphed(state, batches(6), rng)
+  twin = copy.deepcopy(state)
+  twin_rng = None
+  if random:
+    twin_rng = torch.Generator(device=dev)
+    twin_rng.set_state(rng.get_state())
+  run = batches(6)
+  state, got = graphed(state, run, rng)
+  twin, want = eager(twin, run, twin_rng)
+  assert graphed.captures == 1 and graphed.replays == 3 + 6
+  assert torch.equal(got['loss'], want['loss'])
+  for (name, a), b in zip(state.model.state_dict().items(),
+                          twin.model.state_dict().values()):
+    assert torch.equal(a, b), name

@@ -34,7 +34,9 @@ for mod in pkgutil.walk_packages(ranking_tpu_torch.__path__,
 for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
              'data.native', 'data.libsvm', 'data.tfrecord', 'data.proto',
              'data.parsers', 'data.dataset', 'utils.tensorboard',
-             'data.trec', 'ops.aggregated', 'pipeline.export'):
+             'data.trec', 'ops.aggregated', 'pipeline.export',
+             'ops.losses', 'ops.sorting', 'ops.loss_registry',
+             'models.scorers', 'convert', 'train.steps'):
   assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')
