@@ -9,6 +9,7 @@ one CUDA card.
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --anchor-seeds N
+    python3 chip_smoke.py --scorers-only
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -249,8 +250,13 @@ With ``--anchor-seeds N`` the script builds the kernels (phases 1-2) and
 then only runs phase 21a's first-step checks of every key, each with the
 float64 steps of ``_hold_first_step``'s anchor whether or not it is needed,
 for the default run's models and batches and N - 1 other seeds, and prints
-one ``{"anchor_sweep": ...}`` line of the readings. It exits non-zero if a
+one ``{"anchor_sweep": ...}`` line of the readings (also written to
+``chiprun_out/anchor_sweep.json``). It exits non-zero if a
 check failed on any seed.
+
+With ``--scorers-only`` it builds the kernels and runs only phase 22 and
+its timings, and prints (and writes to ``chiprun_out/scorers.json``) one
+``{"scorers": ...}`` line.
 
 Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
 line (each kernel also with its launches in phases 17, 18 and 21, as its
@@ -333,8 +339,12 @@ def _fail(msg):
   raise SystemExit(f'chip_smoke: FAILED: {msg}')
 
 
+_START = time.perf_counter()
+
+
 def _log(msg):
-  print(msg, flush=True)
+  """A line of the run's log, after the seconds since the script started."""
+  print(f'[{time.perf_counter() - _START:7.1f} s] {msg}', flush=True)
 
 
 def _card_line():
@@ -670,15 +680,26 @@ def _fused_bounds(n=N_ROWS, dims=(F,) + HIDDEN):
 
 
 # Phase 3's tower shapes beyond the flagship's: N off the 128-row tile
-# (25601, 700), an output of 264 (two tiles and 8) and of 8, unaligned
-# widths (129, 130: rows not 16-byte aligned; 129 columns take the 136-wide
-# tile), and W as a contiguous [F_in, F_out] as well as the parameter's
-# transposed view. (label, N, dims, W contiguous)
+# (25601, 700, 6401), an output of 264 (two tiles and 8) and of 8,
+# unaligned widths (129, 130: rows not 16-byte aligned; 129 columns take
+# the 136-wide tile; 100), an input of 272, and W as a contiguous
+# [F_in, F_out] as well as the parameter's transposed view. (label, N,
+# dims, W contiguous)
 FUSED_EDGE_CASES = (
     ('N=25601 136-264-8', 25601, (136, 264, 8), False),
     ('N=700 129-130-136-8', 700, (129, 130, 136, 8), False),
     ('N=700 136-264-8, W contiguous', 700, (136, 264, 8), True),
-    (f'N={N_ROWS} flagship, W contiguous', N_ROWS, (F,) + HIDDEN, True))
+    (f'N={N_ROWS} flagship, W contiguous', N_ROWS, (F,) + HIDDEN, True),
+    # Phase 22's towers: the groupwise scorer's (g = 2 windows of F
+    # features, 272 wide, over the flagship's rows) and DIN's (the
+    # attention's 100 wide), each also at an unaligned N.
+    (f'N={N_ROWS} groupwise 272-256-128-64', N_ROWS, (2 * F, 256, 128, 64),
+     False),
+    ('N=25601 groupwise 272-256-128-64', 25601, (2 * F, 256, 128, 64),
+     False),
+    (f'N={N_ROWS} DIN 100-512-256-128', N_ROWS, (100, 512, 256, 128),
+     False),
+    ('N=6401 DIN 100-512-256-128', 6401, (100, 512, 256, 128), False))
 
 
 def _check_fused_kernels(gen):
@@ -848,11 +869,12 @@ def _zero_in_theory(model, shift_invariant):
   return names
 
 
-def _zero_tol(model, loss_fn, batch):
+def _zero_tol(model, loss_fn, batch, generator=None):
   """The rounding bound of a gradient that is zero in theory: a float32
   sum over the N_ROWS rows of terms of about the largest logit gradient,
   N_ROWS * 2^-23 of it (at least 1e-6). The logit gradient from a
-  train-mode forward of a copy of ``model`` through the plain versions."""
+  train-mode forward of a copy of ``model`` through the plain versions
+  (drawing from ``generator`` where the model draws)."""
   import contextlib
   import copy
   from ranking_tpu_torch.ops.cuda import fused_bn
@@ -863,7 +885,9 @@ def _zero_tol(model, loss_fn, batch):
   with contextlib.ExitStack() as stack:
     stack.enter_context(fused_bn.plain_versions())
     stack.enter_context(pairwise.plain_versions())
-    logits = model(b.context, b.examples, b.mask, training=True).detach()
+    extra = {} if generator is None else {'generator': generator}
+    logits = model(b.context, b.examples, b.mask, training=True,
+                   **extra).detach()
     logits.requires_grad_()
     loss_fn(b.labels, logits).backward()
   return max(1e-6, N_ROWS * 2.0 ** -23 * logits.grad.abs().max().item())
@@ -1172,15 +1196,16 @@ def _mm_calls(case):
   }
 
 
-def _time_fused(gen):
+def _time_fused(gen, n=N_ROWS, dims=(F,) + HIDDEN):
   """Phase 9a: {row name: {'ms', 'plain_ms', 'ms_by_shape', ...}} at the
-  flagship shapes, float32; device time per call from CUDA graph replays,
-  beside the plain version, the bound (tensor cores and float32 pipes) and
-  the bare products through ``torch.mm``."""
+  flagship shapes (or at ``n`` rows of the tower ``dims``), float32; device
+  time per call from CUDA graph replays, beside the plain version, the
+  bound (tensor cores and float32 pipes) and the bare products through
+  ``torch.mm``."""
   import torch
   from ranking_tpu_torch.ops.cuda import fused_bn
-  case = _fused_case(gen, N_ROWS, 'ragged', torch.float32)
-  bounds = _fused_bounds()
+  case = _fused_case(gen, n, 'ragged', torch.float32, dims)
+  bounds = _fused_bounds(n, dims)
   mm_calls = _mm_calls(case)
   out = {}
   for row, calls in _fused_calls(case).items():
@@ -1203,7 +1228,7 @@ def _time_fused(gen):
                 'bound_ms_f32_pipe_by_shape': dict(zip(
                     by_shape, (b[2] for b in bounds[row]))),
                 'mm_ms_by_shape': mm_by_shape}
-    _log(f'fused {row}: ' + ', '.join(
+    _log(f'fused {row} (N={n}): ' + ', '.join(
         f'{k} {v:.4f} ms (plain {plain_by_shape[k]:.4f}, bound '
         f'{out[row]["bound_ms_by_shape"][k]:.4f}, f32-pipe bound '
         f'{out[row]["bound_ms_f32_pipe_by_shape"][k]:.4f}'
@@ -1663,13 +1688,15 @@ def _pairwise_bounds(d, loss, mode, backward):
              (pref * sfu / SFU_OPS_PER_S * 1e3, 'operations'))
 
 
-def _time_pairwise(gen):
+def _time_pairwise(gen, shapes=((B, L), (LONG_B, LONG_L)),
+                   lambda_modes=('none', 'v1')):
   """Phase 12a: {wrapper name: {case: {'ms', 'plain_ms', 'bound_ms',
   'bound_by'}}}; device time per call from CUDA graph replays."""
   from ranking_tpu_torch.ops.cuda import pairwise as pw
-  modes = {'none': pw.LAMBDA_NONE, 'v1': pw.LAMBDA_DCG_V1}
+  modes = {k: v for k, v in (('none', pw.LAMBDA_NONE),
+                             ('v1', pw.LAMBDA_DCG_V1)) if k in lambda_modes}
   out = {'pairwise_sums_forward': {}, 'pairwise_sums_backward': {}}
-  for b, l in ((B, L), (LONG_B, LONG_L)):
+  for b, l in shapes:
     d = _pairwise_inputs(gen, b, l)
     ops = [d[k] for k in _PAIR_OPERANDS]
     for mode, mode_id in modes.items():
@@ -2230,6 +2257,11 @@ def _kernel_counts(fn):
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # A device operation and a wait before ``fn``: a run once lost the
+    # first kernels of a graph replay, as if the tracing had not yet
+    # started on the card when the replay began.
+    torch.ones(1, device='cuda').add_(1)
+    torch.cuda.synchronize()
     fn()
     torch.cuda.synchronize()
   counts = collections.Counter(
@@ -2809,8 +2841,9 @@ def _pipeline_phase(gen):
 ELWC_TRAIN_FILES = 4
 ELWC_PROBE = 64                   # records held decoder against plain
 # The sparse token run: phase 13's workload fed as ELWC of string tokens
-# hashed into the 3M rows; 20 steps, 10 a dispatch.
-TOKEN_LISTS, TOKEN_STEPS = 640, 20
+# hashed into the 3M rows; one dispatch of 10 steps, to keep the script
+# within its time.
+TOKEN_LISTS, TOKEN_STEPS = 640, KSTEPS
 LOADER_PASSES = 7                 # timed passes of each loader rate
 
 
@@ -2939,9 +2972,13 @@ def _loader_rates(pattern, cache_dir):
     if stream.loader.cache_state != state:
       _fail(f'elwc loader: cache {stream.loader.cache_state}, not {state}')
     marks = [t0]
-    for i, _ in enumerate(stream, start=1):
-      if i % per_pass == 0:
+    batches = 0
+    for batches, _ in enumerate(stream, start=1):
+      if batches % per_pass == 0:
         marks.append(time.perf_counter())
+    if batches != epochs * per_pass:
+      _fail(f'elwc loader: a stream of {epochs} passes (cache {state}) '
+            f'ended after {batches} batches, not {epochs * per_pass}')
     rates = [per_pass * B / (b - a) for a, b in zip(marks, marks[1:])]
     return rates, stream.loader.num_threads
 
@@ -3869,6 +3906,9 @@ ZOO_SHIFT_INVARIANT = frozenset((
     'neural_sort_ndcg_loss', 'gumbel_neural_sort_ndcg_loss',
     'coupled_rankdistil_loss'))
 ZOO_SHIFT_TOL = 1e-9
+# Phase 21c and 21d's train files: half of phase 18's lists (the stream
+# repeats over its 50 steps), which halves the time spent writing them.
+ZOO_TRAIN_LISTS = PIPE_TRAIN_LISTS // 2
 MT_TASKS = ('relevance', 'click')
 MT_LOSSES = {'relevance': 'softmax_loss', 'click': 'sigmoid_cross_entropy_loss'}
 MT_WEIGHTS = {'relevance': 1.0, 'click': 0.3}
@@ -3965,30 +4005,173 @@ def _first_step_f64(model, batch, record):
   return {k: p.grad for k, p in model.named_parameters()}
 
 
+@contextlib.contextmanager
+def _card_decisions(replay=None):
+  """Inside, the two places where a loss of the zoo turns float32 rounding
+  into a different answer give up what they computed: every
+  ``list_ops.sort_by_scores`` call its order (``[B, topn]`` int64 positions,
+  asked of the same call as one more float channel, so that a call the
+  sort kernel takes still takes it) with its scores as float64, and every
+  ``sorting.gumbel_sample_lists`` call its sampled logits. Yields
+  ``{'sorts': [...], 'samples': [...]}``, in call order. With ``replay``
+  (such a record of an earlier run of the same code) sort i reorders its
+  features by that run's order i instead of sorting, and sample i takes
+  that run's sampled logits as its value (the gradient stays this run's),
+  while the record keeps this run's own scores and samples: a comparison
+  then holds the arithmetic, not the rank decisions or the rounding of the
+  samples, which are held on their own against this run's."""
+  import torch
+  from ranking_tpu_torch.ops import sorting
+  from ranking_tpu_torch.utils import list_ops
+  sort_by_scores = list_ops.sort_by_scores
+  sample_lists = sorting.gumbel_sample_lists
+  record = {'sorts': [], 'samples': []}
+
+  def keys(scores, mask):
+    """The scores as float64, masked items below every valid one (a sort
+    puts them last)."""
+    scores = scores.detach().double().cpu()
+    if mask is None:
+      return scores
+    low = scores.min(dim=1, keepdim=True).values - 1.0
+    return torch.where(mask.cpu().to(torch.bool), scores, low)
+
+  def sorts(scores, features_list, topn=None, **kwargs):
+    if replay is not None:
+      order = replay['sorts'][len(record['sorts'])][0].to(scores.device)
+      record['sorts'].append((order, keys(scores, kwargs.get('mask'))))
+      return [list_ops.gather_per_row(f, order) for f in features_list]
+    positions = torch.arange(scores.shape[1], dtype=torch.float32,
+                             device=scores.device).expand(scores.shape)
+    *out, order = sort_by_scores(scores, list(features_list) + [positions],
+                                 topn=topn, **kwargs)
+    record['sorts'].append((order.to(torch.int64),
+                            keys(scores, kwargs.get('mask'))))
+    return out
+
+  def samples(*args, **kwargs):
+    labels, logits, weights = sample_lists(*args, **kwargs)
+    record['samples'].append(logits.detach())
+    if replay is not None:
+      card = replay['samples'][len(record['samples']) - 1]
+      logits = logits + (card.to(logits.device, logits.dtype)
+                         - logits).detach()
+    return labels, logits, weights
+
+  with mock.patch.object(list_ops, 'sort_by_scores', sorts), \
+      mock.patch.object(sorting, 'gumbel_sample_lists', samples):
+    yield record
+
+
+# Two float32 sort keys computed from the same float64 value are ordered
+# the other way round only where the float64 values lie within both
+# computations' rounding of each other. A key that differs by rounding is a
+# float32 result of a few operations each rounded to nearest (CRD's sampled
+# teacher: a sum, a subtracted maximum, an exponential, a division by the
+# row's sum, a log: five, each within u = 2^-24 of its result relative),
+# and the log of the row's sum shifts every key of a row alike, which
+# cannot swap two of them. So two keys swap only if their float64 gap is
+# below 2 x 5u of the larger magnitude; rounded up to 2^-20 (16u).
+ZOO_TIE_GAP = 2.0 ** -20
+# A Gumbel-sampled logit s = log(softmax(z) + 1e-20), z = (x + g) / t, in
+# float32 against float64, per entry: the sum z and the subtracted maximum
+# (2u |z| each), the exponential, the division and the added 1e-20 (u
+# each, relative), the row's sum of L exponentials (at most L u relative,
+# any order) and the log (u |s| plus the relative error of its argument).
+# With |z| <= 1 + |s| past the maximum: (L + 8) u (1 + |s|).
+ZOO_SAMPLE_ROUNDINGS = 8
+
+
+def _order_inversions(card_sorts, replayed_sorts):
+  """How the orders a float32 run on the card chose (``card_sorts``) order
+  the float64 scores that a run replaying them computed at the same calls
+  (``replayed_sorts``): the lists where some later item has a larger
+  float64 score than an earlier one, and the largest such inversion, as a
+  share of the larger of the two scores and 1 (a magnitude below 1 rounds
+  at the same absolute grain). Returns (lists inverted, lists sorted,
+  largest inversion)."""
+  import torch
+  inverted = total = 0
+  worst = 0.0
+  for (card, _), (_, scores) in zip(card_sorts, replayed_sorts):
+    s = torch.gather(scores, 1, card.cpu())
+    gap = (s[:, 1:] - s[:, :-1]) / torch.maximum(
+        torch.maximum(s[:, 1:].abs(), s[:, :-1].abs()),
+        torch.ones_like(s[:, 1:]))
+    total += card.shape[0]
+    if gap.numel():
+      inverted += int((gap > 0).any(dim=1).sum())
+      worst = max(worst, float(gap.max().clamp(min=0.0)))
+  return inverted, total, worst
+
+
+def _sample_rounding(card_samples, own_samples, list_size):
+  """The largest distance of the card's float32 Gumbel-sampled logits from
+  the float64 run's, as a share of its bound (``ZOO_SAMPLE_ROUNDINGS``);
+  0 where the loss samples none."""
+  worst = 0.0
+  u = 2.0 ** -24
+  for card, own in zip(card_samples, own_samples):
+    own = own.cpu()
+    bound = (list_size + ZOO_SAMPLE_ROUNDINGS) * u * (1.0 + own.abs())
+    worst = max(worst, float(((card.cpu().double() - own).abs()
+                              / bound).max()))
+  return worst
+
+
 def _zoo_loss_check(key, loss_fn, model, batch):
   """The loss and its logit gradient on the card, at the logits of a
   train-mode forward of ``model`` (a copy: the forward moves the running
   statistics), against the same loss in float64 on the CPU of the same
-  logits. Returns (value error, gradient error, and where that is beyond
-  ZOO_GRAD_TOL the same float32 computation's on the CPU, else None), as
-  shares of the float64 value and largest gradient entry."""
+  logits, which takes the card's own rank decisions and Gumbel-sampled
+  logits (``_card_decisions``): where a loss sorts float32 scores that lie
+  within rounding of each other (CRD's sampled teacher), the loss is
+  discontinuous there and either order is right; and NeuralSort over
+  sampled log-probabilities turns each ulp of a sample into a large change
+  of the gradient, whatever computes it. Those inputs are held on their
+  own against the float64 scores and samples of the same recompute: the
+  card's orders may invert the float64 scores by ``ZOO_TIE_GAP`` only, and
+  its samples must lie within their rounding bound of the float64 ones. The same code also runs in float64
+  on the card, which shows whether the card computes what the CPU does.
+  Returns the readings, as shares of the float64 value and largest
+  gradient entry: value and gradient errors, the float32 CPU's gradient
+  error where the card's is beyond ZOO_GRAD_TOL, the float64 card's, and
+  the decisions'."""
   import torch
   from ranking_tpu_torch.train import steps
   model = model.to('cuda')
   b = steps.restore_flat_examples(batch.to('cuda'))
   logits = model(b.context, b.examples, b.mask, training=True).detach()
   card = logits.clone().requires_grad_()
-  value = loss_fn(b.labels, card)
+  with _card_decisions() as decisions:
+    value = loss_fn(b.labels, card)
   value.backward()
   cpu = logits.to('cpu', torch.float64).requires_grad_()
-  want = loss_fn(b.labels.cpu(), cpu)
+  with _card_decisions(replay=decisions) as replayed:
+    want = loss_fn(b.labels.cpu(), cpu)
   want.backward()
   if want.dtype != torch.float64:
     _fail(f'zoo {key}: the CPU recompute ran in {want.dtype}')
+  differ, lists, inversion = _order_inversions(decisions['sorts'],
+                                               replayed['sorts'])
+  sampled = _sample_rounding(decisions['samples'], replayed['samples'],
+                             logits.shape[1])
+  if inversion > ZOO_TIE_GAP:
+    _fail(f'zoo {key}: the card sorted {differ} of {lists} lists against '
+          f'the float64 scores, inverting scores {inversion:.3g} apart (more '
+          f'than rounding, {ZOO_TIE_GAP:.3g})')
+  if sampled > 1.0:
+    _fail(f'zoo {key}: the card\'s Gumbel-sampled logits lie {sampled:.3g} '
+          'times their rounding bound from float64')
+  card64 = logits.double().requires_grad_()
+  with _card_decisions(replay=decisions):
+    value64 = loss_fn(b.labels, card64)
+  value64.backward()
   if key in ZOO_SHIFT_INVARIANT:
     mask = b.mask.cpu()
-    shifted = loss_fn(b.labels.cpu(), torch.where(mask, cpu.detach() + 0.37,
-                                                  cpu.detach()))
+    with _card_decisions(replay=decisions):
+      shifted = loss_fn(b.labels.cpu(), torch.where(
+          mask, cpu.detach() + 0.37, cpu.detach()))
     shift_err = abs(shifted.item() - want.item()) / abs(want.item())
     if not shift_err <= ZOO_SHIFT_TOL:
       _fail(f'zoo {key}: listed in ZOO_SHIFT_INVARIANT, but a shift of '
@@ -4000,21 +4183,30 @@ def _zoo_loss_check(key, loss_fn, model, batch):
             / cpu.grad.abs().max().clamp(min=1e-30)).item()
 
   grad_err, cpu32_err = grad_error(card.grad), None
+  card64_err = grad_error(card64.grad)
   if not math.isfinite(value.item()) or not torch.isfinite(card.grad).all():
     _fail(f'zoo {key}: the loss or its gradient is not finite on the card')
   if grad_err > ZOO_GRAD_TOL:
     # The same float32 computation on the CPU: if it is as far from
     # float64, float32 and not the card makes the difference.
-    cpu32 = logits.cpu().requires_grad_()
-    loss_fn(b.labels.cpu(), cpu32).backward()
+    cpu32 = logits.to('cpu', copy=True).requires_grad_()
+    with _card_decisions(replay=decisions):
+      loss_fn(b.labels.cpu(), cpu32).backward()
     cpu32_err = grad_error(cpu32.grad)
+  readings = {'value_err': value_err, 'grad_err': grad_err,
+              'grad_err_cpu_float32': cpu32_err,
+              'grad_err_card_float64': card64_err,
+              'lists_inverted': differ, 'lists_sorted': lists,
+              'largest_inversion': inversion,
+              'samples_over_rounding_bound': sampled}
+  _log(f'zoo {key}: loss check {readings}')
   if value_err > ZOO_VALUE_TOL or (
       grad_err > ZOO_GRAD_TOL and grad_err > 2 * cpu32_err):
     _fail(f'zoo {key}: card vs float64 CPU: value {value.item()} vs '
           f'{want.item()} ({value_err:.3g}), gradient {grad_err:.3g} of its '
           f'largest entry (tolerances {ZOO_VALUE_TOL}, {ZOO_GRAD_TOL}, or '
           f'twice float32 on the CPU: {cpu32_err})')
-  return value_err, grad_err, cpu32_err
+  return readings
 
 
 def _zoo_first_step(key, gen, batches, force_anchor=False):
@@ -4033,8 +4225,7 @@ def _zoo_first_step(key, gen, batches, force_anchor=False):
   step = steps.make_train_step(loss_fn, device='cuda')
   model = _train_model(gen, output_units=units)
   twin, anchor_model = copy.deepcopy(model), copy.deepcopy(model)
-  value_err, grad_err, cpu32_err = _zoo_loss_check(
-      key, loss_fn, copy.deepcopy(model), batch)
+  loss_check = _zoo_loss_check(key, loss_fn, copy.deepcopy(model), batch)
   state = state_lib.create_train_state(model, state_lib.adam(1e-3),
                                        device='cuda')
   with _recording_tower(state.model) as first_record:
@@ -4053,9 +4244,7 @@ def _zoo_first_step(key, gen, batches, force_anchor=False):
                                                              batch, rec),
                           first_record=first_record,
                           force_anchor=force_anchor)
-  out = {'first_loss': first_loss, 'value_err': value_err,
-         'grad_err': grad_err, 'grad_err_cpu_float32': cpu32_err,
-         'first_step': hold}
+  out = {'first_loss': first_loss, **loss_check, 'first_step': hold}
   return out, step, state, batch
 
 
@@ -4072,7 +4261,8 @@ def _anchor_sweep(seeds):
     for key in ('softmax_loss',) + ZOO_KEYS:
       try:
         readings, *_ = _zoo_first_step(key, gen, batches, force_anchor=True)
-        out.setdefault(key, []).append(readings['first_step'])
+        out.setdefault(key, []).append(
+            {k: v for k, v in readings.items() if k != 'first_loss'})
       except SystemExit as e:
         failures.append(f'seed {i}: {e}')
         out.setdefault(key, []).append({'failed': str(e)})
@@ -4213,8 +4403,61 @@ def _write_click_elwc(path, num_lists, seed):
   return int(clicks.sum()), int((labels > 0).sum())
 
 
+def _hold_graphed_eval(what, pipe, builder, history):
+  """The pipeline's own graphed eval (captured in its validation pass on the
+  trained model) against the eager step it wraps, on the validation lists:
+  its replays must equal the eager step bit for bit (metric states and
+  logits, a dict of them for a multi-task model), and the history's
+  val_loss and metrics must be the eager results. Returns the eager
+  results."""
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.train import steps
+  trained = pipe.final_state.model
+  graphed_eval = pipe._eval_step
+  captures = graphed_eval.captures
+  batches = list(dataset.prefetch_to_device(builder.valid_batches(), 'cuda',
+                                            flat_examples=True))
+
+  def eval_pass(step_fn):
+    states = steps.init_metric_states(pipe.metric_fns, with_loss=True,
+                                      device='cuda')
+    logits = []
+    for batch in batches:
+      states, lg = step_fn(trained, batch, states,
+                           num_valid_rows=batch.batch_size)
+      logits.append(lg if isinstance(lg, dict) else {'': lg})
+    return states, logits
+
+  replays = graphed_eval.replays
+  g_states, g_logits = eval_pass(graphed_eval)
+  e_states, e_logits = eval_pass(graphed_eval.eval_step)
+  torch.cuda.synchronize()
+  equal = all(torch.equal(g_states[n].total, e_states[n].total)
+              and torch.equal(g_states[n].count, e_states[n].count)
+              for n in e_states) and all(
+                  torch.equal(g[t], e[t]) for g, e in zip(g_logits, e_logits)
+                  for t in e)
+  if (not equal or captures != 1 or graphed_eval.captures != captures
+      or graphed_eval.replays - replays != len(batches)):
+    _fail(f'{what}: the pipeline\'s graphed eval != its eager step '
+          f'({graphed_eval.captures - captures} new captures, '
+          f'{graphed_eval.replays - replays} replays for {len(batches)} '
+          'batches)')
+  eager = {n: v.to(torch.float32).item()
+           for n, v in steps.metric_results(e_states).items()}
+  eager['val_loss'] = eager.pop('loss')
+  differ = {k: (history[k], v) for k, v in eager.items() if history[k] != v}
+  if differ:
+    _fail(f'{what}: the history differs from the eager eval of the trained '
+          f'model: {differ}')
+  _log(f'{what}: graphed eval == eager bit for bit over {len(batches)} '
+       'batches')
+  return {n: st.result().item() for n, st in e_states.items()}
+
+
 def _zoo_pipelines(gen):
-  """Phase 21c and 21d over ELWC files in phase 18's shape (1,280 train
+  """Phase 21c and 21d over ELWC files in phase 18's shape (640 train
   lists in 4 files, 256 validation lists) that also carry a click a
   document. (c) ``SimplePipeline`` with ``loss='approx_ndcg_loss'`` (the
   scale-invariant recipe by default) over ``SimpleDatasetBuilder``, one
@@ -4242,7 +4485,7 @@ def _zoo_pipelines(gen):
   out = {}
   try:
     t0 = time.perf_counter()
-    per_file = PIPE_TRAIN_LISTS // ELWC_TRAIN_FILES
+    per_file = ZOO_TRAIN_LISTS // ELWC_TRAIN_FILES
     clicks = [_write_click_elwc(os.path.join(root, f'train-{i}.tfrecord'),
                                 per_file, SEED + 20 + i)
               for i in range(ELWC_TRAIN_FILES)]
@@ -4251,7 +4494,7 @@ def _zoo_pipelines(gen):
     out['write_s'] = time.perf_counter() - t0
     out['clicks'], out['relevant'] = (sum(c[0] for c in clicks),
                                       sum(c[1] for c in clicks))
-    _log(f'zoo: wrote {PIPE_TRAIN_LISTS} train lists in {ELWC_TRAIN_FILES} '
+    _log(f'zoo: wrote {ZOO_TRAIN_LISTS} train lists in {ELWC_TRAIN_FILES} '
          f'files and {PIPE_VALID_LISTS} validation lists with clicks '
          f'({out["clicks"]} clicks on {out["relevant"]} relevant train '
          f'documents) in {out["write_s"]:.2f} s')
@@ -4347,58 +4590,15 @@ def _zoo_pipelines(gen):
         or not all(math.isfinite(v) for v in history.values())):
       _fail(f'zoo multitask: {pipe._multi_step.captures} captures, history '
             f'{history}')
-    # The pipeline's own graphed eval (captured in its validation pass on
-    # the trained model) against the eager step it wraps, on the validation
-    # lists: its replays must equal the eager step bit for bit, and the
-    # history's val_loss and task metrics must be the eager results.
-    trained = pipe.final_state.model
-    graphed_eval = pipe._eval_step
-    captures = graphed_eval.captures
-    batches = list(dataset.prefetch_to_device(builder.valid_batches(), 'cuda',
-                                              flat_examples=True))
-
-    def eval_pass(step_fn):
-      states = steps.init_metric_states(pipe.metric_fns, with_loss=True,
-                                        device='cuda')
-      logits = []
-      for batch in batches:
-        states, lg = step_fn(trained, batch, states,
-                             num_valid_rows=batch.batch_size)
-        logits.append(lg)
-      return states, logits
-
-    replays = graphed_eval.replays
-    g_states, g_logits = eval_pass(graphed_eval)
-    e_states, e_logits = eval_pass(graphed_eval.eval_step)
-    torch.cuda.synchronize()
-    equal = all(torch.equal(g_states[n].total, e_states[n].total)
-                and torch.equal(g_states[n].count, e_states[n].count)
-                for n in e_states) and all(
-                    torch.equal(g[t], e[t]) for g, e in zip(g_logits, e_logits)
-                    for t in MT_TASKS)
-    if (not equal or captures != 1 or graphed_eval.captures != captures
-        or graphed_eval.replays - replays != len(batches)):
-      _fail(f'zoo multitask: the pipeline\'s graphed eval != its eager step '
-            f'({graphed_eval.captures - captures} new captures, '
-            f'{graphed_eval.replays - replays} replays for {len(batches)} '
-            'batches)')
-    eager = {n: v.to(torch.float32).item()
-             for n, v in steps.metric_results(e_states).items()}
-    eager['val_loss'] = eager.pop('loss')
-    differ = {k: (history[k], v) for k, v in eager.items() if history[k] != v}
-    if differ:
-      _fail(f'zoo multitask: the history differs from the eager eval of the '
-            f'trained model: {differ}')
-    results = {n: s.result().item() for n, s in e_states.items()}
+    results = _hold_graphed_eval('zoo multitask', pipe, builder, history)
     out['multitask'] = {'history': history, 'run_s': run_s,
                         'eval_graphed_equals_eager': True,
-                        'eval_replays': graphed_eval.replays,
+                        'eval_replays': pipe._eval_step.replays,
                         'eval': results}
     _log(f'zoo multitask: one capture, loss {history["loss"]:.6f}, val_loss '
          f'{history["val_loss"]:.6f}, '
          + ', '.join(f'{k} {history[k]:.4f}' for k in names)
-         + f'; graphed eval == eager bit for bit over {len(batches)} '
-         f'batches; run {run_s:.1f} s')
+         + f'; graphed eval == eager bit for bit; run {run_s:.1f} s')
     return out, approx_wrappers, approx_card, mt_wrappers
   finally:
     shutil.rmtree(root, ignore_errors=True)
@@ -4429,6 +4629,937 @@ def _zoo_phase():
              'perm_tensor_mib': perm_mib, 'graph_vs_eager': graph, **pipes}
   per_step = {k: v['launches_per_step'] for k, v in keys.items()}
   return numbers, per_step, approx_wrappers, approx_card, mt_wrappers
+
+
+# --- phase 22: the other scorers, Bilinear and the dense-gradient lazy path ---
+
+# 22a: examples/ranking_libsvm.py --scorer gam: F one-column towers of
+# 256-128-64 (:44, :57-72), dropout 0.5 (:45), pairwise_logistic_loss
+# (:40), learning rate 0.01 (:39), B = 32 lists (:37) of L = 100 (:36). Its
+# pipeline runs one epoch of GAM_STEPS steps over LIBSVM files in MSLR's
+# shape (a cut of scale: 640 lists), and 64 validation lists.
+GAM_B, GAM_L, GAM_HIDDEN, GAM_DROPOUT, GAM_LR = 32, 100, (256, 128, 64), 0.5, 0.01
+GAM_STEPS, GAM_VALID_LISTS = 2 * KSTEPS, 64
+# 22b: examples/ranking_libsvm.py --group_size 2 (:73-76) at the flagship's
+# B128 x L200 x F136, under softmax.
+GROUP_SIZE, GROUP_HIDDEN = 2, (256, 128, 64)
+# 22c: examples/antique_din.py --dasalc (:51-52): 4 attention layers of 2
+# heads x 100, hidden 512-256-128, dropout 0.5, approx_ndcg_loss (:32),
+# learning rate 0.05 (:33); token tables embed_q and embed_d of 10,000 x 20
+# (:26-27, :62-66) under optimizer='lazy_adam'; ELWC lists of up to L = 50
+# documents (:25) with 10 query and 60 document tokens, B = 128. Two
+# dispatches of K = 10 over 640 lists (the train stream repeats); two
+# validation batches, so that the pipeline's eval captures its graph on
+# the second.
+DIN_B, DIN_L, DIN_TQ, DIN_TD = 128, 50, 10, 60
+DIN_VOCAB, DIN_DIM, DIN_LR = 10_000, 20, 0.05
+DIN_LAYERS, DIN_HEADS, DIN_HEAD_SIZE, DIN_HIDDEN = 4, 2, 100, (512, 256, 128)
+DIN_STEPS, DIN_TRAIN_LISTS, DIN_VALID_LISTS = 2 * KSTEPS, 640, 2 * DIN_B
+# 22d: phase 13's sparse workload through the dense-gradient lazy update.
+# A bound above the rows one batch can touch (B*L*T + B*T = 52,224 a
+# table), and one below the rows it does touch.
+LAZY_MAX_ROWS = 65_536
+# 22e: Bilinear at examples/unbiased_two_tower.py's shapes: B = 64 lists
+# (:35) of L = 20 (:31), 16 features (:32) against a one-hot position of
+# L + 2 (the position tower's input, :94).
+BILINEAR_B, BILINEAR_L, BILINEAR_X, BILINEAR_Y = 64, 20, 16, 22
+# Bilinear on the card against float64 on the CPU, as a share of the
+# largest output: float32 sums of Dx * Dy = 352 products.
+BILINEAR_TOL = 1e-5
+
+
+def _gam_model(gen, dropout):
+  """RankingModel(log1p) over a GAMScorer of F one-column towers: the packed
+  [B, L, F] features split into F features, as examples/ranking_libsvm.py's
+  SplitGAM does."""
+  from torch import nn
+  from ranking_tpu_torch.models import scorers
+
+  class SplitGAM(nn.Module):
+
+    def __init__(self):
+      super().__init__()
+      self.gam = scorers.GAMScorer(
+          GAM_HIDDEN, {f'col_{i:03d}': 1 for i in range(F)},
+          dropout=dropout, generator=gen)
+
+    def forward(self, context, examples, mask, training=False,
+                generator=None, intermediates=None):
+      (x,) = examples.values()
+      feats = {f'col_{i:03d}': x[..., i:i + 1] for i in range(x.shape[-1])}
+      return self.gam(context, feats, mask, training=training,
+                      generator=generator, intermediates=intermediates)
+
+  return scorers.RankingModel(SplitGAM(), transform_name='log1p')
+
+
+def _groupwise_model(gen, dropout):
+  from ranking_tpu_torch.models import groupwise, scorers
+  return scorers.RankingModel(groupwise.GroupwiseDNNScorer(
+      GROUP_SIZE * F, group_size=GROUP_SIZE, hidden_layer_dims=GROUP_HIDDEN,
+      dropout=dropout, generator=gen), transform_name='log1p')
+
+
+def _din_model(gen, dropout):
+  """examples/antique_din.py's model: token tables embed_q and embed_d,
+  named after no batch feature, under a DINScorer."""
+  from torch import nn
+  from ranking_tpu_torch.models import embeddings, scorers
+
+  class AntiqueDIN(nn.Module):
+
+    def __init__(self):
+      super().__init__()
+      self.embed_q = embeddings.EmbeddingEncoder(DIN_VOCAB, DIN_DIM,
+                                                 generator=gen)
+      self.embed_d = embeddings.EmbeddingEncoder(DIN_VOCAB, DIN_DIM,
+                                                 generator=gen)
+      self.din = scorers.DINScorer(
+          2 * DIN_DIM, num_heads=DIN_HEADS, head_size=DIN_HEAD_SIZE,
+          num_attention_layers=DIN_LAYERS, hidden_layer_dims=DIN_HIDDEN,
+          dropout=dropout, generator=gen)
+
+    def forward(self, context, examples, mask, training=False,
+                generator=None):
+      return self.din({'q': self.embed_q(context['query_tokens'])},
+                      {'d': self.embed_d(examples['document_tokens'])}, mask,
+                      training=training, generator=generator)
+
+  return scorers.RankingModel(AntiqueDIN())
+
+
+def _zero_names(model, shift_invariant):
+  """Parameters of phase 22's models whose gradient is zero in theory: in
+  every tower the biases in front of a batch norm; the attention's key
+  biases (a constant of every logit of a query row), and the last
+  attention layer's value and output biases
+  (attention weights sum to 1, so each adds one vector to every row on the
+  residual path into the tower's first batch norm); and with
+  ``shift_invariant`` every output bias whose change shifts every logit of
+  a list alike (each GAM tower's, with no context weights; the groupwise
+  and DIN tower's)."""
+  from ranking_tpu_torch.models import layers
+  names = set()
+  towers = [(n, m) for n, m in model.named_modules()
+            if isinstance(m, layers.Tower)]
+  for prefix, tower in towers:
+    if tower.bn:
+      names |= {f'{prefix}.dense.{i}.bias' for i in range(len(tower.bn))}
+    if shift_invariant and not prefix.split('.')[-1].startswith('context'):
+      names.add(f'{prefix}.dense.{len(tower.dense) - 1}.bias')
+  attentions = [(n, m) for n, m in model.named_modules()
+                if isinstance(m, layers.MultiHeadAttention)]
+  names |= {f'{n}.key.bias' for n, _ in attentions}
+  if attentions:
+    last = attentions[-1][0]
+    names |= {f'{last}.value.bias', f'{last}.out.bias'}
+  return names
+
+
+def _seeded_step(step, seed):
+  """``step`` with a new CUDA generator of ``seed`` each call, so that two
+  first steps draw the same dropout masks and shuffles."""
+  import torch
+
+  def run(state, batch):
+    return step(state, batch,
+                torch.Generator(device='cuda').manual_seed(seed))
+
+  return run
+
+
+@contextlib.contextmanager
+def _output_grad(model):
+  """Inside, a forward of ``model`` records the gradient of the loss with
+  respect to its output; yields a dict that has it as 'dlogits' after the
+  backward."""
+  rec = {}
+
+  def hook(module, inputs, output):
+    output.register_hook(lambda g: rec.update(dlogits=g.detach().clone()))
+
+  handle = model.register_forward_hook(hook)
+  try:
+    yield rec
+  finally:
+    handle.remove()
+
+
+def _hold_first_step_whole(what, step, twin, batch, first_loss, first_grads,
+                           first_stats, first_dlogits):
+  """The first step against the same step through the plain versions when
+  only rows 7-8 run (GAM: its towers take 3-D inputs, which the fused tower
+  does not, so both steps run the same tower code): the loss within 1e-5,
+  the logit gradient that rows 7-8 produce within PAIR_TOL of its largest
+  entry, every gradient through that one difference held in the norm over
+  all parameters (OP_TOL_NORM: a parameter whose gradient cancels, as a
+  one-input layer's in front of a batch norm, would magnify it alone), the
+  running statistics within 1e-5."""
+  with _output_grad(twin) as rec:
+    twin_metrics, grads, stats, launched, _ = _plain_step(step, twin, batch,
+                                                          False)
+  loss_err = abs(twin_metrics['loss'].item() - first_loss)
+  dlogit_err = _rel_err(first_dlogits, rec['dlogits'])[1]
+  num = sum(float(((first_grads[k] - g) ** 2).sum()) for k, g in grads.items())
+  den = sum(float((g ** 2).sum()) for g in grads.values())
+  norm = math.sqrt(num / max(den, 1e-30))
+  stat_err = max((_rel_err(first_stats[k], v)[1] for k, v in stats.items()),
+                 default=0.0)
+  if (loss_err > 1e-5 * abs(first_loss) or dlogit_err > PAIR_TOL
+      or norm > OP_TOL_NORM or stat_err > 1e-5):
+    _fail(f'{what}: first step vs plain versions: loss {loss_err:.3g}, logit '
+          f'gradient {dlogit_err:.3g} (PAIR_TOL), gradients {norm:.3g} in '
+          f'the norm over all parameters, running statistics {stat_err:.3g}')
+  _log(f'{what}: first step vs plain versions on the card: loss within '
+       f'{loss_err:.3g}, logit gradient within {dlogit_err:.3g}, gradients '
+       f'within {norm:.3g} in the norm over all parameters, running '
+       f'statistics within {stat_err:.3g}')
+  return {'loss': loss_err, 'dlogits': dlogit_err, 'norm': norm,
+          'stats': stat_err}
+
+
+@contextlib.contextmanager
+def _recording_fused_tower(tower):
+  """Inside, a train step whose ``tower`` takes the fused path records what
+  the tower's backward started from: its input, each hidden layer's ReLU
+  gates (as ``_recording_tower`` reads them) and the gradient of the loss
+  with respect to the tower's output; and what it gave back, the gradient
+  with respect to its input. Yields a dict that has 'x', 'gates', 'dout'
+  and 'dx' after the block."""
+  from ranking_tpu_torch.ops.cuda import fused_bn
+  ys, folds, rec = [], [], {}
+  layer_forward, bn_fold = fused_bn.layer_forward, fused_bn._bn_fold
+
+  def record_layer(*args, **kwargs):
+    out = layer_forward(*args, **kwargs)
+    ys.append(out[0])
+    return out
+
+  def record_fold(*args, **kwargs):
+    out = bn_fold(*args, **kwargs)
+    folds.append(out)
+    return out
+
+  def record_io(module, inputs, output):
+    rec['x'] = inputs[0].detach().clone()
+    if inputs[0].requires_grad:
+      inputs[0].register_hook(lambda g: rec.update(dx=g.detach().clone()))
+    output.register_hook(lambda g: rec.update(dout=g.detach().clone()))
+
+  record_layer.launches = 0   # the wrapper counts on its module's name
+  handle = tower.register_forward_hook(record_io)
+  try:
+    with mock.patch.object(fused_bn, 'layer_forward', record_layer), \
+        mock.patch.object(fused_bn, '_bn_fold', record_fold):
+      yield rec
+  finally:
+    handle.remove()
+    layer_forward.launches += record_layer.launches
+  if len(ys) != len(tower.bn) or 'dout' not in rec:
+    _fail(f'recording the tower: {len(ys)} layers (not {len(tower.bn)}), '
+          f'output gradient {"dout" in rec}')
+  rec['gates'] = [y.to(f[3].dtype) * f[3] + f[4] > 0
+                  for y, f in zip(ys, folds)]
+
+
+def _tower_step_f64(tower, rec, prefix):
+  """The gradients of ``tower``'s parameters (named with ``prefix``) in
+  float64 on the card, from a step's record (``_recording_fused_tower``):
+  its input, Dense -> batch norm over every row -> that step's ReLU gates,
+  the output layer, and a backward from that step's output gradient."""
+  import copy
+  import torch
+  import torch.nn.functional as nnf
+  t = copy.deepcopy(tower).to('cuda', torch.float64)
+  h = rec['x'].to(torch.float64)
+  for dense, bn, gate in zip(t.dense[:-1], t.bn, rec['gates']):
+    y = h @ dense.weight.t() + dense.bias
+    mu = y.mean(0)
+    var = torch.clamp((y * y).mean(0) - mu * mu, min=0.0)
+    h = ((y - mu) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias) * gate
+  out = nnf.linear(h, t.dense[-1].weight, t.dense[-1].bias)
+  out.backward(rec['dout'].to(torch.float64))
+  return {prefix + k: p.grad for k, p in t.named_parameters()}
+
+
+def _upstream_step_f64(model, tower, batch, dx):
+  """The gradients of ``model``'s parameters upstream of its tower (those
+  not named with the prefix ``tower``) in float64 on the card, from a copy
+  of ``model``: a train-mode forward up to the tower's input (the tower
+  does not run), and a backward from ``dx``, a step's gradient with
+  respect to that input."""
+  import copy
+  import torch
+  from ranking_tpu_torch.train import steps
+  m = copy.deepcopy(model).to('cuda', torch.float64)
+  for module in m.modules():   # the compute dtype of towers and attention
+    if isinstance(getattr(module, 'dtype', None), torch.dtype):
+      module.dtype = torch.float64
+  seen = {}
+
+  class Reached(Exception):
+    pass
+
+  def stop(module, inputs):
+    seen['x'] = inputs[0]
+    raise Reached()
+
+  handle = m.get_submodule(tower.rstrip('.')).register_forward_pre_hook(stop)
+  b = steps.restore_flat_examples(batch.to('cuda'))
+  try:
+    m(b.context, b.examples, b.mask, training=True)
+  except Reached:
+    pass
+  finally:
+    handle.remove()
+  names = [k for k, _ in m.named_parameters() if not k.startswith(tower)]
+  params = [m.get_parameter(k) for k in names]
+  # The attention hands the tower float32 (flax's cast); the backward of
+  # that cast carries the gradient on in float64.
+  grads = torch.autograd.grad(seen['x'], params,
+                              grad_outputs=dx.to(seen['x'].dtype),
+                              allow_unused=True)
+  return {k: (torch.zeros_like(p) if g is None else g)
+          for k, p, g in zip(names, params, grads)}
+
+
+def _norm_diff(got, want, skip):
+  """The distance of ``got`` from ``want`` in the norm over all their
+  entries, but the names of ``skip``, as a share of ``want``'s norm."""
+  num = den = 0.0
+  for k, w in want.items():
+    if k in skip:
+      continue
+    num += float(((got[k].double() - w.double()) ** 2).sum())
+    den += float((w.double() ** 2).sum())
+  return math.sqrt(num / max(den, 1e-30))
+
+
+def _hold_first_step_upstream(what, step, twin, batch, first_loss,
+                              first_grads, first_stats, first_record, tower,
+                              anchor, anchor_model, zero_names, zero_tol,
+                              plain_sort):
+  """The first step against the same step through the plain versions when
+  the fused tower's input needs a gradient (DIN; ``tower`` the prefix of
+  its parameters' names). The tower's parameters as phase 7 holds them
+  (``_grad_errors``: OP_TOL_NORM each in the norm, OP_TOL_MAX at the
+  largest entry, the ones zero in theory within ``zero_tol``); where they
+  are beyond OP_TOL_NORM, each float32 step's tower gradients are held to
+  ANCHOR_TOL of the float64 step of its own input, ReLU gates and output
+  gradient (the two forwards open a few gates on one side only, each
+  moving a gradient by one row's whole term; ``_tower_step_f64`` of
+  ``anchor``, a copy of the untrained tower).
+  Everything upstream of the tower (attention, tables) receives the
+  tower's input gradient (row 5) carried back through the attention
+  layers, where such a gate moves one row of it and the cancelling sums
+  carry that into single entries, so those are held together in the norm
+  over all of them (OP_TOL_NORM), the zero-in-theory ones within
+  ``zero_tol``; beyond OP_TOL_NORM, each float32 step's upstream gradients
+  are held to ANCHOR_TOL (in that norm) of a float64 backward of the
+  untrained ``anchor_model`` from that step's own input gradient
+  (``_upstream_step_f64``). Loss and running statistics as phase 7."""
+  module = twin.get_submodule(tower.rstrip('.'))
+  with _recording_fused_tower(module) as plain_record:
+    twin_metrics, grads, stats, _, _ = _plain_step(step, twin, batch,
+                                                   plain_sort)
+  loss_err = abs(twin_metrics['loss'].item() - first_loss)
+  if loss_err > 1e-5 * abs(first_loss):
+    _fail(f'{what}: first loss {first_loss} vs plain versions '
+          f'{twin_metrics["loss"].item()}')
+  inside = {k: v for k, v in grads.items() if k.startswith(tower)}
+  norm, norm_name, worst, worst_name = _grad_errors(
+      first_grads, inside, zero_names, zero_tol)
+  out = {'loss': loss_err, 'norm': norm, 'norm_param': norm_name,
+         'max': worst, 'max_param': worst_name}
+  if worst == math.inf or worst > OP_TOL_MAX:
+    _fail(f'{what}: the tower\'s gradient {worst_name} differs from the '
+          f'plain versions by {worst:.3g} of its largest entry')
+  if norm > OP_TOL_NORM:
+    flips = sum(int((a != b).sum().item()) for a, b in zip(
+        first_record['gates'], plain_record['gates']))
+    kern = _grad_errors(first_grads, _tower_step_f64(anchor, first_record,
+                                                     tower),
+                        zero_names, zero_tol)
+    plain = _grad_errors(grads, _tower_step_f64(anchor, plain_record, tower),
+                         zero_names, zero_tol)
+    out.update(gates_differ=flips, kernels_f64_norm=kern[0],
+               kernels_f64_max=kern[2], plain_f64_norm=plain[0],
+               plain_f64_max=plain[2])
+    for side, e in (('kernels\'', kern), ('plain versions\'', plain)):
+      if e[0] > ANCHOR_TOL or e[2] > ANCHOR_TOL:
+        _fail(f'{what}: the tower\'s gradients differ from the plain '
+              f'versions by {norm:.3g} in norm ({norm_name}); the {side} '
+              f'step is off from the float64 step of its own gates by '
+              f'{e[0]:.3g} in norm ({e[1]}), {e[2]:.3g} at most; the two '
+              f'forwards differ in {flips} gates')
+  outside = {k: g for k, g in grads.items() if k not in inside}
+  for k in zero_names & set(outside):
+    if max(outside[k].abs().max().item(),
+           first_grads[k].abs().max().item()) > zero_tol:
+      _fail(f'{what}: gradient {k} (zero in theory) off by more than '
+            f'{zero_tol:.3g}')
+  upstream = _norm_diff(first_grads, outside, zero_names)
+  out['upstream_norm'] = upstream
+  if upstream > OP_TOL_NORM:
+    kern = _norm_diff(first_grads, _upstream_step_f64(
+        anchor_model, tower, batch, first_record['dx']), zero_names)
+    plain = _norm_diff(grads, _upstream_step_f64(
+        anchor_model, tower, batch, plain_record['dx']), zero_names)
+    out.update(upstream_kernels_f64_norm=kern, upstream_plain_f64_norm=plain)
+    if kern > ANCHOR_TOL or plain > ANCHOR_TOL:
+      _fail(f'{what}: the gradients upstream of the tower differ from the '
+            f'plain versions by {upstream:.3g} in their norm; from the '
+            f'float64 backward of their own input gradient by {kern:.3g} '
+            f'(kernels) and {plain:.3g} (plain versions)')
+  stat_err = max((_rel_err(first_stats[k], v)[1] for k, v in stats.items()),
+                 default=0.0)
+  if stat_err > 1e-5:
+    _fail(f'{what}: running statistics differ from the plain versions by '
+          f'{stat_err:.3g}')
+  out['stats'] = stat_err
+  _log(f'{what}: first step vs plain versions on the card: {out}')
+  return out
+
+
+def _first_step_22(what, model_fn, loss_fn, batch, shift_invariant,
+                   sparse_tx=None, seed=None, plain_sort=False, whole=False,
+                   tower=None):
+  """A first train step of a fresh model on the card against the same step
+  through the plain versions (``_hold_first_step`` at phase 7's
+  tolerance; with ``whole`` ``_hold_first_step_whole``; with ``tower``,
+  the prefix of a tower whose input needs a gradient,
+  ``_hold_first_step_upstream``), and the wrappers' launches of one eager
+  step. Returns (readings, launches of the step)."""
+  import copy
+  import torch
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  model = model_fn()
+  twin = copy.deepcopy(model)
+  # The untrained tower, for the float64 steps: a step moves the weights.
+  anchor = (None if tower is None
+            else copy.deepcopy(model.get_submodule(tower.rstrip('.'))))
+  anchor_model = None if tower is None else copy.deepcopy(model)
+  step = steps.make_train_step(loss_fn, device='cuda')
+  if seed is not None:
+    step = _seeded_step(step, seed)
+  state = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                       device='cuda', sparse_tx=sparse_tx)
+  before = steps.kernel_launch_counts()
+  with contextlib.ExitStack() as stack:
+    rec = stack.enter_context(_output_grad(state.model))
+    if tower is not None:
+      tower_rec = stack.enter_context(_recording_fused_tower(
+          state.model.get_submodule(tower.rstrip('.'))))
+    state, metrics = step(state, batch)
+  after = steps.kernel_launch_counts()
+  launches = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+  first_loss = metrics['loss'].item()
+  if not math.isfinite(first_loss):
+    _fail(f'{what}: first loss {first_loss}')
+  first_grads, first_stats = _snapshot_first_step(state)
+  if whole:
+    hold = _hold_first_step_whole(what, step, twin, batch, first_loss,
+                                  first_grads, first_stats, rec['dlogits'])
+  elif tower is not None:
+    hold = _hold_first_step_upstream(
+        what, step, twin, batch, first_loss, first_grads, first_stats,
+        tower_rec, tower, anchor, anchor_model,
+        _zero_names(twin, shift_invariant),
+        _zero_tol(twin, loss_fn, batch), plain_sort)
+  else:
+    hold = _hold_first_step(
+        what, step, twin, batch, first_loss, first_grads, first_stats,
+        plain_sort=plain_sort, zero_names=_zero_names(twin, shift_invariant),
+        zero_tol=_zero_tol(twin, loss_fn, batch, None if seed is None else
+                           torch.Generator(device='cuda').manual_seed(seed)))
+  del state
+  return dict(hold, first_loss=first_loss), launches
+
+
+def _graph_vs_eager_22(what, make_state, step, batches, random, launches):
+  """Phase 16's check for one of phase 22's steps: a first dispatch of K
+  steps through ``make_multi_step`` (warm-up and capture; the capture must
+  record ``launches``, the eager step's), then K replays on the state
+  against K eager steps on a copy of it, bitwise (or within SPARSE_TOL
+  where two eager runs already differ: atomics), with a CUDA generator
+  for the dropout masks and shuffles where ``random``. Returns ms a step,
+  graph and eager, by CUDA events around whole dispatches."""
+  import copy
+  import torch
+  from ranking_tpu_torch.train import steps
+  warm = steps.stack_batches(batches[:KSTEPS]).to('cuda')
+  run = steps.stack_batches(batches[KSTEPS:]).to('cuda')
+  state = make_state()
+  rng = torch.Generator(device='cuda').manual_seed(SEED) if random else None
+
+  def rng_copy():
+    if rng is None:
+      return None
+    out = torch.Generator(device='cuda')
+    out.set_state(rng.get_state())
+    return out
+
+  graphed = steps.make_multi_step(step, device='cuda')
+  eager = steps.make_multi_step(step, device='cuda', eager=True)
+  state, _ = graphed(state, warm, rng)
+  if graphed.captures != 1 or graphed.replays != KSTEPS - graphed.warmup:
+    _fail(f'{what}: {graphed.captures} captures and {graphed.replays} '
+          'replays in the first dispatch')
+  if graphed.captured_launches != launches:
+    _fail(f'{what}: launches recorded at capture '
+          f'{graphed.captured_launches} != one eager step\'s {launches}')
+  twins = [copy.deepcopy(state), copy.deepcopy(state)]
+  twin_rngs = [rng_copy(), rng_copy()]
+  torch.cuda.synchronize()
+  state, graph_metrics = graphed(state, run, rng)
+  twins[0], eager_metrics = eager(twins[0], run, twin_rngs[0])
+  twins[1], _ = eager(twins[1], run, twin_rngs[1])
+  torch.cuda.synchronize()
+  if graphed.captures != 1:
+    _fail(f'{what}: the second dispatch captured again')
+  repeats = not _state_diff(twins[0], twins[1])[0]
+  differ, worst = _state_diff(state, twins[0])
+  losses = graph_metrics['loss'].tolist()
+  losses_equal = torch.equal(graph_metrics['loss'], eager_metrics['loss'])
+  if (repeats and (differ or not losses_equal)) or worst > (
+      0.0 if repeats else SPARSE_TOL) or not all(map(math.isfinite, losses)):
+    _fail(f'{what}: {KSTEPS} replays vs {KSTEPS} eager steps: {len(differ)} '
+          f'tensors differ ({differ[:4]}), worst {worst:.3g}, losses equal '
+          f'{losses_equal} ({losses}); two eager runs repeat each other: '
+          f'{repeats}')
+  twins.pop()
+  # The eager step is timed over one dispatch after the two above: GAM's
+  # takes some 0.6 s a step.
+  out = {'graph_ms_per_step': _event_ms(
+             lambda: graphed(state, run, rng), 3, warmup=1) / KSTEPS,
+         'eager_ms_per_step': _event_ms(
+             lambda: eager(twins[0], run, twin_rngs[0]), 1,
+             warmup=0) / KSTEPS,
+         'bitwise': repeats, 'max_rel_diff': worst,
+         'launches_per_step': dict(graphed.captured_launches),
+         'losses': losses}
+  _log(f'{what}: {KSTEPS} replays == {KSTEPS} eager steps '
+       + ('bitwise' if repeats else f'within {worst:.3g} (two eager runs '
+          'differ: atomics)')
+       + f'; ms a step {out["graph_ms_per_step"]:.4f} graph, '
+       f'{out["eager_ms_per_step"]:.4f} eager; launches a step '
+       f'{out["launches_per_step"]}')
+  del state, twins, graphed, eager, warm, run
+  gc.collect()
+  torch.cuda.empty_cache()
+  return out
+
+
+def _timed_pipeline(pipe):
+  """Runs ``pipe.train_and_validate`` with CUDA events around its
+  dispatches that only replay. Returns (history, run s, steady state)."""
+  from ranking_tpu_torch.train import steps
+  timed = []
+  make_multi_step = steps.make_multi_step
+
+  def make_timed(*args, **kwargs):
+    timed.append(_TimedDispatches(make_multi_step(*args, **kwargs)))
+    return timed[-1]
+
+  t0 = time.perf_counter()
+  with mock.patch.object(steps, 'make_multi_step', make_timed):
+    history = pipe.train_and_validate()
+  run_s = time.perf_counter() - t0
+  if pipe._multi_step is not timed[0] or not timed[0].spans:
+    _fail('the timed K-step dispatch did not run, or never only replayed')
+  return history, run_s, _steady_state(timed[0].spans,
+                                       pipe.hparams.steps_per_epoch)
+
+
+def _gam_phase(gen, root):
+  """Phase 22a: ``ranking_libsvm.py --scorer gam``. The sub-scores add up
+  to the logits; the first step at dropout 0 against the plain versions
+  (rows 7-8 off; the towers take 3-D inputs, so the fused tower never
+  runs); K replays == K eager steps at dropout 0.5; the pipeline over
+  LIBSVM files with one capture, timed."""
+  import os
+  import torch
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.data import libsvm
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.pipeline import hparams as hparams_lib
+  from ranking_tpu_torch.pipeline import pipeline as pipeline_lib
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  out = {}
+  loss_fn = loss_registry.make_loss_fn('pairwise_logistic_loss')
+  batches = [dataset.flatten_examples(_make_batch(gen, GAM_B, l=GAM_L))
+             for _ in range(2 * KSTEPS)]
+  model = _gam_model(gen, GAM_DROPOUT).to('cuda')
+  b = steps.restore_flat_examples(batches[0].to('cuda'))
+  inter = {}
+  with torch.no_grad():
+    logits = model(b.context, b.examples, b.mask, intermediates=inter)
+  sub = inter['gam_sub_scores']
+  if sub.shape != (GAM_B, GAM_L, F) or not torch.equal(
+      logits[b.mask], sub.sum(-1)[b.mask]):
+    _fail(f'gam: sub-scores {tuple(sub.shape)} do not add up to the logits')
+  out['first_step'], launches = _first_step_22(
+      'gam first step (dropout 0)', lambda: _gam_model(gen, 0.0), loss_fn,
+      batches[0], shift_invariant=True, whole=True)
+  step = steps.make_train_step(loss_fn, device='cuda')
+  out['graph'] = _graph_vs_eager_22(
+      'gam', lambda: state_lib.create_train_state(
+          _gam_model(gen, GAM_DROPOUT), state_lib.adam(GAM_LR),
+          device='cuda'), step, batches, True, launches)
+  paths = {}
+  for split, lists, seed in (('train', GAM_B * GAM_STEPS, SEED + 50),
+                             ('vali', GAM_VALID_LISTS, SEED + 51)):
+    paths[split] = os.path.join(root, f'gam-{split}.txt')
+    libsvm.write_random_lists(paths[split], lists, F, PIPE_MIN_DOCS, GAM_L,
+                              seed=seed)
+  pipe = pipeline_lib.SimplePipeline(
+      _gam_model(gen, GAM_DROPOUT), pipeline_lib.LibSVMDatasetBuilder(
+          paths['train'], paths['vali'], GAM_L, F, GAM_B, seed=SEED),
+      hparams_lib.PipelineHparams(
+          model_dir=os.path.join(root, 'gam'), num_epochs=1,
+          steps_per_epoch=GAM_STEPS, validation_steps=10 ** 6,
+          learning_rate=GAM_LR, loss='pairwise_logistic_loss',
+          steps_per_execution=KSTEPS), device='cuda')
+  history, run_s, steady = _timed_pipeline(pipe)
+  if pipe._multi_step.captures != 1 or not all(
+      math.isfinite(v) for v in history.values()):
+    _fail(f'gam pipeline: {pipe._multi_step.captures} captures, history '
+          f'{history}')
+  out['pipeline'] = {'history': history, 'run_s': run_s, **steady}
+  _log(f'gam: {F} one-column towers of {GAM_HIDDEN} at B={GAM_B}, '
+       f'L={GAM_L}: sub-scores add up to the logits bitwise; pipeline one '
+       f'capture, {steady["loop_lists_per_s"]:.0f} lists/s over the '
+       f'replay-only window ({steady["dispatch_lists_per_s"]:.0f} over the '
+       f'dispatches alone), run {run_s:.1f} s, loss {history["loss"]:.4f}, '
+       f'ndcg {history["ndcg"]:.4f}')
+  del pipe, model
+  return out
+
+
+def _groupwise_phase(gen):
+  """Phase 22b: ``GroupwiseDNNScorer(g=2, 256-128-64)`` at the flagship's
+  shape under softmax. At dropout 0 it takes the fused tower at an input
+  of 272: its first step against the plain versions, with the same
+  shuffles on both sides; K replays == K eager steps with a CUDA
+  generator for the shuffles; one step at the example's dropout 0.5."""
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  out = {}
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  batches = [dataset.flatten_examples(_make_batch(gen, B))
+             for _ in range(2 * KSTEPS)]
+  out['first_step'], launches = _first_step_22(
+      'groupwise first step (dropout 0)', lambda: _groupwise_model(gen, 0.0),
+      loss_fn, batches[0], shift_invariant=True, seed=SEED + 52)
+  if [launches.get(n, 0) for n in ('layer_forward', 'bwd_stats',
+                                   'bwd_mats')] != [3, 1, 2]:
+    _fail(f'groupwise: launches of one step {launches}, not 3 / 1 / 2 of '
+          'rows 2-4')
+  step = steps.make_train_step(loss_fn, device='cuda')
+  out['graph'] = _graph_vs_eager_22(
+      'groupwise', lambda: state_lib.create_train_state(
+          _groupwise_model(gen, 0.0), state_lib.adam(1e-3), device='cuda'),
+      step, batches, True, launches)
+  state = state_lib.create_train_state(_groupwise_model(gen, 0.5),
+                                       state_lib.adam(1e-3), device='cuda')
+  _, metrics = _seeded_step(step, SEED + 53)(state, batches[0])
+  loss = metrics['loss'].item()
+  if not math.isfinite(loss):
+    _fail(f'groupwise: a step at dropout 0.5 gave loss {loss}')
+  out['dropout_step_loss'] = loss
+  _log(f'groupwise: g={GROUP_SIZE} over B={B} x L={L} x F={F} (tower input '
+       f'{GROUP_SIZE * F}), a step at dropout 0.5: loss {loss:.6f}')
+  return out
+
+
+def _din_records(seed, lists):
+  """ELWC lists of 20 to DIN_L documents of DIN_TD string tokens, a query
+  of DIN_TQ, labels 0-4 (tokens drawn from 10M words, hashed into the
+  tables' rows by the loader)."""
+  import numpy as np
+  from ranking_tpu_torch.data import proto
+  rng = np.random.RandomState(seed)
+  out = []
+  for _ in range(lists):
+    n = rng.randint(SPARSE_MIN_LEN, DIN_L + 1)
+    words = rng.randint(0, 10_000_000, size=(n + 1) * DIN_TD)
+    out.append(proto.make_elwc(
+        {'query_tokens': [f'w{w}' for w in words[:DIN_TQ]]},
+        [{'document_tokens': [f'w{w}' for w in
+                              words[(i + 1) * DIN_TD:(i + 2) * DIN_TD]],
+          'relevance': [int(rng.randint(0, 5))]} for i in range(n)]))
+  return out
+
+
+def _din_phase(gen, root):
+  """Phase 22c: ``antique_din.py --dasalc`` through ``SimplePipeline`` over
+  ELWC token files, with tables that no batch feature names, so that the
+  pipeline trains them by the dense-gradient lazy update: one capture, the
+  graphed eval == eager, no row dropped. Its first step at dropout 0 (the
+  fused tower at an input of 100, which needs a gradient) against the plain
+  versions."""
+  import os
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.data import parsers
+  from ranking_tpu_torch.data import tfrecord
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.pipeline import hparams as hparams_lib
+  from ranking_tpu_torch.pipeline import pipeline as pipeline_lib
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  from ranking_tpu_torch.train import steps
+  out = {}
+  specs = ({'query_tokens': parsers.VarLenFeature(
+               'string', max_len=DIN_TQ, hash_buckets=DIN_VOCAB)},
+           {'document_tokens': parsers.VarLenFeature(
+               'string', max_len=DIN_TD, hash_buckets=DIN_VOCAB),
+            'relevance': parsers.FixedLenFeature((), 'int64', 0)})
+  t0 = time.perf_counter()
+  for split, lists, seed in (('train', DIN_TRAIN_LISTS, SEED + 54),
+                             ('vali', DIN_VALID_LISTS, SEED + 55)):
+    tfrecord.write_records(os.path.join(root, f'din-{split}.tfrecord'),
+                           _din_records(seed, lists))
+  out['write_s'] = time.perf_counter() - t0
+  builder = pipeline_lib.SimpleDatasetBuilder(
+      *specs, hparams_lib.DatasetHparams(
+          train_input_pattern=os.path.join(root, 'din-train.tfrecord'),
+          valid_input_pattern=os.path.join(root, 'din-vali.tfrecord'),
+          train_batch_size=DIN_B, valid_batch_size=DIN_B, list_size=DIN_L,
+          dataset_engine='native_loader'), seed=SEED)
+  first = dataset.flatten_examples(next(iter(builder.train_batches())))
+  model = _din_model(gen, 0.5)
+  if sparse_lib.derive_embed_features(
+      sparse_lib.named_paths(model), first.context,
+      steps.restore_flat_examples(first).examples):
+    _fail('din: a batch feature names a table; the pipeline would take the '
+          'sparse step')
+  loss_fn = loss_registry.make_loss_fn('approx_ndcg_loss')
+  out['first_step'], out['first_step_launches'] = _first_step_22(
+      'din first step (dropout 0)', lambda: _din_model(gen, 0.0), loss_fn,
+      first, shift_invariant=True, sparse_tx=sparse_lib.LazyAdam(DIN_LR),
+      plain_sort=True, tower='scorer.din.tower.')
+  pipe = pipeline_lib.SimplePipeline(
+      model, builder, hparams_lib.PipelineHparams(
+          model_dir=os.path.join(root, 'din'), num_epochs=1,
+          steps_per_epoch=DIN_STEPS, validation_steps=10 ** 6,
+          learning_rate=DIN_LR, loss='approx_ndcg_loss',
+          optimizer='lazy_adam', steps_per_execution=KSTEPS), device='cuda')
+  # lazy_adam's default bound, 8,192 rows a table and step, is below what
+  # a batch of these lists touches in a 10,000-row table (36,160 rows
+  # dropped over 20 steps on an H100); the run takes a bound that covers
+  # the table, so that no row loses a step.
+  with mock.patch.object(pipeline_lib, 'sparse_optimizer_from_hparams',
+                         lambda hp: sparse_lib.LazyAdam(
+                             hp.learning_rate, max_rows=DIN_VOCAB)):
+    history, run_s, steady = _timed_pipeline(pipe)
+  state = pipe.final_state
+  if (pipe._multi_step.captures != 1 or state.step != DIN_STEPS
+      or not all(math.isfinite(v) for v in history.values())):
+    _fail(f'din pipeline: {pipe._multi_step.captures} captures, step '
+          f'{state.step}, history {history}')
+  dropped = int(state.sparse_opt_state['dropped'])
+  count = int(state.sparse_opt_state['count'])
+  if (dropped != 0 or count != DIN_STEPS
+      or state.sparse_tx.max_rows != DIN_VOCAB):
+    _fail(f'din pipeline: the lazy update dropped {dropped} rows, counted '
+          f'{count} steps')
+  out['eval'] = _hold_graphed_eval('din pipeline', pipe, builder, history)
+  graph_ms = [ms / KSTEPS for ms in steady['dispatch_ms']]
+  out['pipeline'] = {'history': history, 'run_s': run_s, 'dropped': dropped,
+                     'launches_per_step': dict(
+                         pipe._multi_step.captured_launches),
+                     'graph_ms_per_step': graph_ms, **steady}
+  _log(f'din: {DIN_LAYERS} layers x {DIN_HEADS} heads x {DIN_HEAD_SIZE}, '
+       f'{DIN_HIDDEN}, tables {DIN_VOCAB} x {DIN_DIM} by the dense-gradient '
+       f'lazy update (dropped 0), B={DIN_B} ELWC token lists of up to '
+       f'{DIN_L}: one capture, {statistics.median(graph_ms):.4f} ms a step '
+       f'(graph replays), {steady["loop_lists_per_s"]:.0f} lists/s over the '
+       f'replay-only window, run {run_s:.1f} s, loss {history["loss"]:.4f}; '
+       f'launches a step {out["pipeline"]["launches_per_step"]}')
+  del pipe, model
+  return out
+
+
+def _lazy_dense_phase(gen, sparse_ms):
+  """Phase 22d: the dense-gradient lazy update (``make_train_step`` on a
+  state with a ``sparse_tx``) at phase 13's scale: its first step against
+  ``make_sparse_train_step``'s on the same batch within SPARSE_TOL, rows
+  no id touched keeping their bits; a step with ``max_rows`` below the
+  rows touched, whose ``dropped`` must count the overflow exactly; K
+  replays == K eager steps. ``sparse_ms`` is phase 16's sparse step, a
+  yardstick."""
+  import copy
+  import torch
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  out = {}
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  batches = [_sparse_batch(gen) for _ in range(2 * KSTEPS)]
+  # One model drawn on the host; every other state starts from a copy of
+  # it on the card (drawing 3M x 128 tables takes seconds).
+  pristine = _sparse_model(gen).to('cuda')
+  model, twin = copy.deepcopy(pristine), copy.deepcopy(pristine)
+  batch = batches[0]
+  dense_step = steps.make_train_step(loss_fn, device='cuda')
+  state = state_lib.create_train_state(
+      model, state_lib.adam(1e-3), device='cuda',
+      sparse_tx=sparse_lib.LazyAdam(1e-3, max_rows=LAZY_MAX_ROWS))
+  tables = sparse_lib.partition(sparse_lib.named_paths(state.model),
+                                state.sparse_tx)[1]
+  before = {p: t.detach().clone() for p, t in tables.items()}
+  launched = steps.kernel_launch_counts()
+  state, metrics = dense_step(state, batch)
+  after = steps.kernel_launch_counts()
+  if any(after[n] != launched[n] for n in after):
+    _fail(f'lazy dense: the step launched a kernel wrapper: '
+          f'{ {n: after[n] - launched[n] for n in after} }')
+  touched = {p: int((t.grad.abs().sum(1) > 0).sum()) for p, t in
+             tables.items()}
+  efs = sparse_lib.derive_embed_features(
+      sparse_lib.named_paths(twin), batch.context,
+      steps.restore_flat_examples(batch).examples)
+  sparse_state = state_lib.create_train_state(
+      twin, state_lib.adam(1e-3), device='cuda',
+      sparse_tx=sparse_lib.LazyAdam(1e-3))
+  sparse_state, sparse_metrics = steps.make_sparse_train_step(
+      loss_fn, efs, device='cuda')(sparse_state, batch)
+  torch.cuda.synchronize()
+  differ, worst = _state_diff(state, sparse_state)
+  loss_err = abs(metrics['loss'].item() - sparse_metrics['loss'].item())
+  if worst > SPARSE_TOL or loss_err > SPARSE_TOL * abs(
+      sparse_metrics['loss'].item()):
+    _fail(f'lazy dense: first step vs the sparse step: {len(differ)} tensors '
+          f'differ, worst {worst:.3g} ({differ[:4]}), loss {loss_err:.3g}')
+  kept = 0
+  for p, t in tables.items():
+    rows = t.grad.abs().sum(1) > 0
+    same = torch.equal(t.detach()[~rows], before[p][~rows]) and all(
+        torch.equal(v[~rows], torch.zeros_like(v[~rows]))
+        for v in state.sparse_opt_state[p].values())
+    if not same:
+      _fail(f'lazy dense: rows of {p} that no id touched changed')
+    kept += int((~rows).sum())
+  if int(state.sparse_opt_state['dropped']) != 0:
+    _fail('lazy dense: dropped rows under a bound above the batch')
+  del sparse_state, twin, before
+  gc.collect()
+  torch.cuda.empty_cache()
+  # Overflow: a bound at three quarters of the fewest rows touched.
+  bound = min(touched.values()) * 3 // 4
+  over = state_lib.create_train_state(
+      copy.deepcopy(pristine), state_lib.adam(1e-3), device='cuda',
+      sparse_tx=sparse_lib.LazyAdam(1e-3, max_rows=bound))
+  over, _ = dense_step(over, batch)
+  over_tables = sparse_lib.partition(sparse_lib.named_paths(over.model),
+                                     over.sparse_tx)[1]
+  want = sum(max(int((t.grad.abs().sum(1) > 0).sum()) - bound, 0)
+             for t in over_tables.values())
+  dropped = int(over.sparse_opt_state['dropped'])
+  if dropped != want or want == 0:
+    _fail(f'lazy dense: max_rows {bound}: dropped {dropped}, the overflow '
+          f'is {want}')
+  del over, over_tables
+  gc.collect()
+  torch.cuda.empty_cache()
+  out.update(first_step_vs_sparse=worst, touched_rows=touched,
+             untouched_rows_kept=kept, overflow_bound=bound,
+             dropped=dropped)
+  del state, model, tables
+  gc.collect()
+  torch.cuda.empty_cache()
+  out['graph'] = _graph_vs_eager_22(
+      'lazy dense', lambda: state_lib.create_train_state(
+          pristine, state_lib.adam(1e-3), device='cuda',
+          sparse_tx=sparse_lib.LazyAdam(1e-3, max_rows=LAZY_MAX_ROWS)),
+      dense_step, batches, False, {})
+  del pristine
+  out['sparse_step_graph_ms'] = sparse_ms
+  _log(f'lazy dense: two {SPARSE_VOCAB} x {SPARSE_DIM} tables, first step == '
+       f'the sparse step within {worst:.3g}, {kept} untouched rows kept '
+       f'their bits, rows touched {touched}; max_rows {bound}: dropped '
+       f'{dropped} == the overflow; {out["graph"]["graph_ms_per_step"]:.4f} '
+       f'ms a step graphed ({out["graph"]["eager_ms_per_step"]:.4f} eager)'
+       + ('' if sparse_ms is None else f' beside the sparse step\'s '
+          f'{sparse_ms:.4f} (phase 16, this run)'))
+  return out
+
+
+def _bilinear_phase(gen):
+  """Phase 22e: ``Bilinear`` on the card against a float64 recompute on the
+  CPU of its einsum, output and gradients, as a share of the largest
+  value."""
+  import torch
+  from ranking_tpu_torch.models import layers
+  layer = layers.Bilinear(BILINEAR_X, BILINEAR_Y, generator=gen)
+  with torch.no_grad():
+    layer.bias.fill_(0.3)
+  x = torch.randn(BILINEAR_B, BILINEAR_L, BILINEAR_X, generator=gen)
+  y = torch.nn.functional.one_hot(
+      torch.randint(0, BILINEAR_Y, (BILINEAR_B, BILINEAR_L), generator=gen),
+      BILINEAR_Y).float()
+  w = torch.randn(BILINEAR_B, BILINEAR_L, 1, generator=gen)
+  kernel = layer.bilinear_kernel.detach().double().requires_grad_()
+  bias = layer.bias.detach().double()
+  card = layer.to('cuda')
+  xc = x.to('cuda', copy=True).requires_grad_()
+  got = card(xc, y.to('cuda'))
+  (got * w.to('cuda')).sum().backward()
+  xr = x.double().requires_grad_()
+  want = torch.einsum('...i,ioj,...j->...o', xr, kernel, y.double()) + bias
+  (want * w.double()).sum().backward()
+  errs = {'out': _rel_err(got.double().cpu(), want)[1],
+          'x_grad': _rel_err(xc.grad.double().cpu(), xr.grad)[1],
+          'kernel_grad': _rel_err(card.bilinear_kernel.grad.double().cpu(),
+                                  kernel.grad)[1]}
+  if max(errs.values()) > BILINEAR_TOL:
+    _fail(f'bilinear: card vs float64 {errs} (allowed {BILINEAR_TOL})')
+  _log(f'bilinear: [{BILINEAR_B}, {BILINEAR_L}, {BILINEAR_X}] x '
+       f'[{BILINEAR_Y}] on the card == float64 on the CPU within {errs}')
+  return errs
+
+
+def _scorers_phase(sparse_ms):
+  """Phase 22: the other scorers (GAM, groupwise, DIN), Bilinear and the
+  dense-gradient lazy update at full width; also the fused rows at the
+  groupwise and DIN towers' shapes, timed. Returns its numbers."""
+  import os
+  import shutil
+  import torch
+  gen = torch.Generator().manual_seed(SEED + 60)
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      '.scratch', 'chip_smoke_scorers')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  try:
+    t0 = time.perf_counter()
+    out = {'gam': _gam_phase(gen, root)}
+    out['groupwise'] = _groupwise_phase(gen)
+    out['din'] = _din_phase(gen, root)
+    out['lazy_dense'] = _lazy_dense_phase(gen, sparse_ms)
+    out['bilinear'] = _bilinear_phase(gen)
+    out['phase_s'] = time.perf_counter() - t0
+    return out
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _time_scorer_kernels():
+  """Phase 22f: the fused rows at the groupwise tower's shapes (N = 25,600,
+  272-256-128-64) and DIN's (N = 6,400, 100-512-256-128), and rows 7-8 at
+  GAM's B32 x L100 without a lambda weight, timed as phases 9a and 12a."""
+  import torch
+  gen = torch.Generator().manual_seed(SEED + 61)
+  return {'fused_groupwise': _time_fused(gen, N_ROWS,
+                                         (GROUP_SIZE * F,) + GROUP_HIDDEN),
+          'fused_din': _time_fused(gen, DIN_B * DIN_L,
+                                   (DIN_HEAD_SIZE,) + DIN_HIDDEN),
+          'pairwise_gam': _time_pairwise(gen, ((GAM_B, GAM_L),), ('none',))}
 
 
 def main():
@@ -4481,11 +5612,27 @@ def main():
     _log(f'{source}: {hgmma[source]} HGMMA instructions; ptxas: '
          + _ptxas_summary(path))
 
+  if '--scorers-only' in sys.argv[1:]:
+    _reset_all_launches()
+    numbers = _scorers_phase(None)
+    numbers['launches'] = steps.kernel_launch_counts()
+    numbers['times'] = _time_scorer_kernels()
+    line = json.dumps({'scorers': numbers, 'card': card})
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'scorers.json'), 'w') as f:
+      f.write(line + '\n')
+    print(line)
+    return 0
+
   if '--anchor-seeds' in sys.argv[1:]:
     seeds = int(sys.argv[sys.argv.index('--anchor-seeds') + 1])
     sweep, failures = _anchor_sweep(seeds)
-    print(json.dumps({'anchor_sweep': sweep, 'failures': failures,
-                      'card': card}))
+    line = json.dumps({'anchor_sweep': sweep, 'failures': failures,
+                       'card': card})
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'anchor_sweep.json'), 'w') as f:
+      f.write(line + '\n')
+    print(line)
     return 1 if failures else 0
 
   # Phase 3: kernel vs plain on the card, bitwise.
@@ -4733,6 +5880,24 @@ def main():
                'bwd_mats', 'pairwise_sums_forward', 'pairwise_sums_backward'):
     if zoo_launches[name] == 0:
       _fail(f'the loss zoo phase never launched {name}')
+  # Phase 22: the other scorers, Bilinear and the dense-gradient lazy
+  # update; counts from 0 here, read before the timings of 22f.
+  _reset_all_launches()
+  scorer_numbers = _scorers_phase(kstep['sparse_a']['graph_ms_per_step'])
+  scorer_launches = steps.kernel_launch_counts()
+  for name in ('sorted_values_and_ranks', 'layer_forward', 'bwd_stats',
+               'bwd_mats', 'bwd_dx_only', 'pairwise_sums_forward',
+               'pairwise_sums_backward'):
+    if scorer_launches[name] == 0:
+      _fail(f'the scorers phase never launched {name}')
+  scorer_numbers['times'] = _time_scorer_kernels()
+  scorer_per_step = {
+      'gam': scorer_numbers['gam']['graph']['launches_per_step'],
+      'groupwise': scorer_numbers['groupwise']['graph']['launches_per_step'],
+      'din_first_step': scorer_numbers['din']['first_step_launches'],
+      'din_pipeline': scorer_numbers['din']['pipeline']['launches_per_step'],
+      'lazy_dense': scorer_numbers['lazy_dense']['graph'][
+          'launches_per_step']}
   timings = {
       'build_s': build_s, 'hgmma': hgmma,
       'fused': fused_times, **train_times,
@@ -4748,7 +5913,8 @@ def main():
       'eval_lists_per_s': B / eval_step_ms * 1e3,
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
       'kstep': kstep, 'pipeline': pipeline_numbers, 'elwc': elwc_numbers,
-      'eval': eval_numbers, 'zoo': zoo_numbers, 'card': card}
+      'eval': eval_numbers, 'zoo': zoo_numbers, 'scorers': scorer_numbers,
+      'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
@@ -4896,6 +6062,13 @@ def main():
     entry['launches_zoo_approx_pipeline_device'] = zoo_approx_card[
         entry['name']]
     entry['launches_zoo_multitask_wrapper'] = zoo_mt_wrappers[entry['name']]
+    # Phase 22: the wrappers' count over the phase (eager steps and one a
+    # capture), and a step of each path (what its capture recorded; DIN's
+    # first step at dropout 0, eager).
+    entry['launches_scorers_phase'] = scorer_launches[entry['name']]
+    entry['launches_scorers_per_step'] = {
+        k: v[entry['name']] for k, v in scorer_per_step.items()
+        if v.get(entry['name'])}
   kernels[0]['launches_zoo_card_per_step'] = {
       k: zoo_numbers['keys'][k]['sort_launches_card'] for k in ZOO_SORT_KEYS}
   print(card)

@@ -1,7 +1,8 @@
 """Carries a JAX package model's variables over to the port.
 
 ``from_flax`` maps the ``{'params', 'batch_stats'}`` tree of a
-``ranking_tpu.models.RankingModel`` over a ``DNNScorer``, an
+``ranking_tpu.models.RankingModel`` over a ``DNNScorer``, a
+``GroupwiseDNNScorer``, a ``GAMScorer``, a ``DINScorer``, an
 ``EmbeddingDNNScorer`` or a ``MultiTaskScorer``, given as numpy arrays, to
 the ``state_dict`` of the port's model of the same kind. The DNN tower lies
 at one of these flax paths under ``params`` (and ``batch_stats``):
@@ -28,6 +29,23 @@ In the tower:
 
 With ``input_batch_norm=True`` the tower's first BatchNorm (flax
 ``BatchNorm_0``) is the input one and the hidden ones follow it.
+
+The other scorers and layers:
+
+* ``GroupwiseDNNScorer``: its tower (``output_units = g``) is
+  ``scorer/Tower_0`` -> ``scorer.tower.``, as a ``DNNScorer``'s;
+* ``GAMScorer``: ``scorer/GAMLayer_0/example_tower_i`` and
+  ``.../context_tower_i`` -> ``scorer.gam.example_tower_i.`` and
+  ``scorer.gam.context_tower_i.``, towers as above;
+* ``DINScorer``: its tower is ``scorer/Tower_0``, and
+  ``scorer/DocumentInteractionAttention_0`` -> ``scorer.attention.``:
+  ``Dense_0/kernel`` ``[F, head_size]`` -> ``dense.weight`` (transposed, no
+  bias), ``LayerNorm_i/{scale, bias}`` -> ``norms.i.{weight, bias}``, and
+  ``MultiHeadDotProductAttention_i/{query, key, value, out}/{kernel, bias}``
+  -> ``attentions.i.{query, key, value, out}.{kernel, bias}`` in flax's
+  layout (``[F, heads, head_dim]``, ``[heads, head_dim, F]``);
+* a ``Bilinear`` layer's own variables: ``bilinear_kernel`` ``[Dx, O, Dy]``
+  and ``bias`` keep their names and layout.
 
 ``to_flax`` is the inverse, for anything keyed like the port's
 ``state_dict``: parameters after a train step, or gradients
@@ -56,6 +74,12 @@ _TOWERS = (
     (('scorer', 'body', 'dnn', 'Tower_0'), 'scorer.body.dnn.tower.'),
 )
 _TABLE = re.compile(r'(scorer(?:\.body)?)\.(embed_[^.]+)\.embedding')
+_GAM = ('scorer', 'GAMLayer_0')
+_GAM_TOWER = re.compile(r'scorer\.gam\.((?:example|context)_tower_\d+)\.')
+_ATTENTION = ('scorer', 'DocumentInteractionAttention_0')
+_ATTENTION_PREFIX = 'scorer.attention.'
+_MHA_PARTS = ('query', 'key', 'value', 'out')
+_BILINEAR = ('bilinear_kernel', 'bias')
 
 
 def _at(tree: Mapping[str, Any], path) -> Any:
@@ -81,27 +105,50 @@ def _tensor(x) -> torch.Tensor:
 
 def from_flax(variables: Mapping[str, Any],
               input_batch_norm: bool = False) -> 'OrderedDict[str, torch.Tensor]':
-  """The port's ``state_dict`` for a flax DNN ranking model's variables."""
+  """The port's ``state_dict`` for a flax ranking model's variables (or a
+  ``Bilinear`` layer's)."""
   params = variables.get('params', {})
   stats = variables.get('batch_stats', {})
-  found = [(path, prefix) for path, prefix in _TOWERS
-           if _at(params, path) is not None]
-  if len(found) != 1:
-    raise ValueError(
-        'expected the variables of RankingModel over a DNNScorer, an '
-        'EmbeddingDNNScorer or a MultiTaskScorer: exactly one of '
-        + ', '.join('params/' + '/'.join(p) for p, _ in _TOWERS)
-        + f'; found {["/".join(p) for p, _ in found]}')
-  path, prefix = found[0]
+  if set(params) == set(_BILINEAR):
+    return OrderedDict((name, _tensor(params[name])) for name in _BILINEAR)
+  gam = _at(params, _GAM)
+  if gam is not None:
+    towers = [(_GAM + (name,), f'scorer.gam.{name}.') for name in sorted(gam)
+              if re.fullmatch(r'(example|context)_tower_\d+', name)]
+  else:
+    towers = [(path, prefix) for path, prefix in _TOWERS
+              if _at(params, path) is not None]
+    if len(towers) != 1:
+      raise ValueError(
+          'expected the variables of RankingModel over a DNNScorer, a '
+          'GroupwiseDNNScorer, a DINScorer, an EmbeddingDNNScorer or a '
+          'MultiTaskScorer: exactly one of '
+          + ', '.join('params/' + '/'.join(p) for p, _ in _TOWERS)
+          + ', or a GAMScorer (params/' + '/'.join(_GAM) + '); found '
+          f'{["/".join(p) for p, _ in towers]}')
   state = OrderedDict()
+  path = towers[0][0]
   owner = path[:-2] if path[-2] == 'dnn' else None
   if owner is not None:
     for name, leaf in _at(params, owner).items():
       if name.startswith('embed_'):
         state['.'.join(owner + (name, 'embedding'))] = _tensor(
             leaf['embedding'])
-  state.update(_tower_state(_at(params, path), _at(stats, path) or {},
-                            prefix, input_batch_norm))
+  for path, prefix in towers:
+    state.update(_tower_state(_at(params, path), _at(stats, path) or {},
+                              prefix, input_batch_norm))
+  attention = _at(params, _ATTENTION)
+  if attention is not None:
+    state[f'{_ATTENTION_PREFIX}dense.weight'] = _tensor(
+        attention['Dense_0']['kernel']).T.contiguous()
+    for i, norm in _indexed(attention, 'LayerNorm').items():
+      state[f'{_ATTENTION_PREFIX}norms.{i}.weight'] = _tensor(norm['scale'])
+      state[f'{_ATTENTION_PREFIX}norms.{i}.bias'] = _tensor(norm['bias'])
+    for i, mha in _indexed(attention, 'MultiHeadDotProductAttention').items():
+      for part in _MHA_PARTS:
+        for leaf in ('kernel', 'bias'):
+          state[f'{_ATTENTION_PREFIX}attentions.{i}.{part}.{leaf}'] = \
+              _tensor(mha[part][leaf])
   return state
 
 
@@ -163,11 +210,25 @@ def to_flax(named: Mapping[str, torch.Tensor],
       _put(tree, ('params',) + tuple(table.group(1).split('.'))
            + (table.group(2), 'embedding'), value)
       continue
-    path, prefix = next(((p, q) for p, q in towers if name.startswith(q)),
-                        (None, None))
+    if name in _BILINEAR:
+      _put(tree, ('params', name), value)
+      continue
+    if name.startswith(_ATTENTION_PREFIX):
+      _put(tree, ('params',) + _ATTENTION + _attention_path(
+          name[len(_ATTENTION_PREFIX):]),
+           value.T.copy() if name.endswith('dense.weight') else value)
+      continue
+    gam = _GAM_TOWER.match(name)
+    if gam:
+      path, prefix = _GAM + (gam.group(1),), gam.group(0)
+      family = _GAM
+    else:
+      path, prefix = next(((p, q) for p, q in towers if name.startswith(q)),
+                          (None, None))
+      family = path
     if path is None:
-      raise ValueError(f'{name!r} is not a parameter of a DNN tower')
-    paths.add(path)
+      raise ValueError(f'{name!r} is not a parameter of a ported model')
+    paths.add(family)
     parts = name[len(prefix):].split('.')
     if parts[0] == 'dense':
       leaf = 'kernel' if parts[2] == 'weight' else 'bias'
@@ -187,6 +248,20 @@ def to_flax(named: Mapping[str, torch.Tensor],
     raise ValueError('parameters of more than one tower layout are mixed: '
                      + ', '.join(sorted('/'.join(p) for p in paths)))
   return tree
+
+
+def _attention_path(rest: str) -> tuple:
+  """The flax path, under ``DocumentInteractionAttention_0``, of the
+  attention's parameter ``rest`` (its port name after the prefix)."""
+  parts = rest.split('.')
+  if parts == ['dense', 'weight']:
+    return ('Dense_0', 'kernel')
+  if parts[0] == 'norms':
+    return (f'LayerNorm_{parts[1]}',
+            'scale' if parts[2] == 'weight' else 'bias')
+  if parts[0] == 'attentions' and parts[2] in _MHA_PARTS:
+    return (f'MultiHeadDotProductAttention_{parts[1]}', parts[2], parts[3])
+  raise ValueError(f'{rest!r} is not a parameter of the DIN attention')
 
 
 def sparse_state_to_flax(sparse_opt_state: Mapping[str, Any]) -> Dict[str, Any]:

@@ -1,10 +1,11 @@
-"""The DNN scorers and the top-level ranking model.
+"""The scorers and the top-level ranking model.
 
-The port's copy of ``DNNScorer``, ``EmbeddingDNNScorer``,
-``MultiTaskScorer`` and ``RankingModel`` from ``ranking_tpu/models/
-scorers.py`` (the reference's tensorflow_ranking/python/keras/model.py), as
-``nn.Module``s mapping ``(context, examples, mask) -> logits [B, L]`` (a
-dict of them for ``MultiTaskScorer``), in eval and train mode.
+The port's copy of ``ranking_tpu/models/scorers.py`` (the reference's
+tensorflow_ranking/python/keras/model.py): ``DNNScorer``, ``GAMScorer``,
+``DINScorer``, ``EmbeddingDNNScorer``, ``MultiTaskScorer`` and
+``RankingModel``, as ``nn.Module``s mapping ``(context, examples, mask) ->
+logits [B, L]`` (a dict of them for ``MultiTaskScorer``), in eval and train
+mode. The groupwise scorer is in ``models/groupwise.py``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 from ranking_tpu_torch.models import embeddings as emb_lib
 from ranking_tpu_torch.models import layers as layers_lib
 from ranking_tpu_torch.utils import fns
+from ranking_tpu_torch.utils import list_ops
 
 Tensor = torch.Tensor
 FeatureDict = Dict[str, Tensor]
@@ -84,6 +86,144 @@ class DNNScorer(nn.Module):
       return layers_lib.restore_list(scores, mask)
     logits = scores.reshape(batch, list_size, self.output_units)
     return torch.where(mask[:, :, None], logits, layers_lib.PADDING_LOGIT)
+
+
+class GAMScorer(nn.Module):
+  """Generalized additive scorer (keras/model.py:820-865): a ``GAMLayer``
+  (``gam``, flax ``GAMLayer_0``) with one tower a feature, so that each
+  document's score is a sum of per-feature sub-scores, weighed by
+  softmax weights from the context features where there are any.
+
+  ``example_widths`` and ``context_widths`` map each feature name to its
+  width (the size of its trailing axes); towers follow the names' sorted
+  order. Invalid slots are circularly padded with valid documents of the
+  same list before the towers, so that their batch statistics see real
+  feature vectors; context features broadcast over the list. Pass a dict
+  as ``intermediates`` to receive the ``[B, L, F_e]`` sub-scores under
+  ``'gam_sub_scores'`` (the JAX scorer's ``sow``): an argument that the
+  forward fills, which a CUDA graph captures like any output.
+  """
+
+  def __init__(
+      self,
+      example_hidden_layer_dims: Sequence[int],
+      example_widths: Mapping[str, int],
+      context_widths: Optional[Mapping[str, int]] = None,
+      context_hidden_layer_dims: Sequence[int] = (),
+      activation: str = 'relu',
+      use_batch_norm: bool = True,
+      batch_norm_momentum: float = 0.999,
+      dropout: float = 0.0,
+      kernel_init: str = 'lecun_normal',
+      generator: Optional[torch.Generator] = None,
+      dtype: torch.dtype = torch.float32,
+  ):
+    super().__init__()
+    context_widths = dict(context_widths or {})
+    self.example_names = sorted(example_widths)
+    self.context_names = sorted(context_widths)
+    self.gam = layers_lib.GAMLayer(
+        [example_widths[n] for n in self.example_names],
+        example_hidden_layer_dims,
+        context_widths=[context_widths[n] for n in self.context_names],
+        context_hidden_layer_dims=context_hidden_layer_dims,
+        activation=activation, use_batch_norm=use_batch_norm,
+        batch_norm_momentum=batch_norm_momentum, dropout=dropout,
+        kernel_init=kernel_init, generator=generator, dtype=dtype)
+
+  def forward(self, context: FeatureDict, examples: FeatureDict,
+              mask: Tensor, training: bool = False,
+              generator: Optional[torch.Generator] = None,
+              intermediates: Optional[Dict[str, Tensor]] = None) -> Tensor:
+    if sorted(examples) != self.example_names or \
+        sorted(context) != self.context_names:
+      raise ValueError(
+          f'GAMScorer over example features {self.example_names} and '
+          f'context features {self.context_names}, given '
+          f'{sorted(examples)} and {sorted(context)}')
+    batch, list_size = mask.shape
+    gather_idx, _ = list_ops.padded_gather_indices(mask)
+    example_inputs = [
+        list_ops.gather_per_row(
+            examples[n].reshape(batch, list_size, -1).to(torch.float32),
+            gather_idx)
+        for n in self.example_names]
+    context_inputs = []
+    for n in self.context_names:
+      t = context[n].reshape(batch, -1).to(torch.float32)
+      context_inputs.append(t[:, None, :].expand(batch, list_size,
+                                                 t.shape[-1]))
+    scores, sub_scores = self.gam(example_inputs, context_inputs,
+                                  training=training, generator=generator)
+    if intermediates is not None:
+      intermediates['gam_sub_scores'] = sub_scores
+    return torch.where(mask, scores.squeeze(-1), layers_lib.PADDING_LOGIT)
+
+
+def _normal(shape, generator: Optional[torch.Generator], device) -> Tensor:
+  """Standard normal draws of ``shape`` on ``device`` from ``generator``."""
+  if generator is None:
+    raise ValueError('training with input noise needs a torch.Generator')
+  return torch.randn(shape, generator=generator, dtype=torch.float32,
+                     device=generator.device).to(device)
+
+
+class DINScorer(nn.Module):
+  """Document Interaction Network scorer (keras/layers.py:420-587,
+  examples/keras/antique_kpl_din.py): cross-document attention over the
+  list (``attention``, flax ``DocumentInteractionAttention_0``), then a
+  scoring tower (``tower``, flax ``Tower_0``) over each document's
+  ``head_size`` attended features.
+
+  ``in_features`` is the width of the concatenated features (context
+  broadcast over the list); invalid slots are circularly padded with valid
+  documents, and the attention masks them out as keys. The tower takes no
+  row mask, as in the JAX package: its batch statistics include the padded
+  slots. ``input_noise_stddev`` adds Gaussian noise of that scale to the
+  features in training, drawn from the forward's generator.
+  """
+
+  def __init__(
+      self,
+      in_features: int,
+      num_heads: int = 2,
+      head_size: int = 100,
+      num_attention_layers: int = 1,
+      hidden_layer_dims: Sequence[int] = (256, 128),
+      activation: str = 'relu',
+      use_batch_norm: bool = True,
+      batch_norm_momentum: float = 0.999,
+      dropout: float = 0.5,
+      input_noise_stddev: float = 0.0,
+      generator: Optional[torch.Generator] = None,
+      dtype: torch.dtype = torch.float32,
+  ):
+    super().__init__()
+    generator = torch.Generator() if generator is None else generator
+    self.input_noise_stddev = input_noise_stddev
+    self.attention = layers_lib.DocumentInteractionAttention(
+        in_features, num_heads=num_heads, head_size=head_size,
+        num_layers=num_attention_layers, dropout=dropout,
+        generator=generator, dtype=dtype)
+    self.tower = layers_lib.Tower(
+        head_size, hidden_layer_dims, output_units=1, activation=activation,
+        use_batch_norm=use_batch_norm,
+        batch_norm_momentum=batch_norm_momentum, dropout=dropout,
+        generator=generator, dtype=dtype)
+
+  def forward(self, context: FeatureDict, examples: FeatureDict,
+              mask: Tensor, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> Tensor:
+    batch, list_size = mask.shape
+    concat = layers_lib.concat_features(context, examples, mask)
+    if self.input_noise_stddev and training:
+      concat = concat + self.input_noise_stddev * _normal(
+          concat.shape, generator, concat.device)
+    attended = self.attention(concat, mask, training=training,
+                              generator=generator)
+    flat = attended.reshape(batch * list_size, -1)
+    scores = self.tower(flat, training=training, generator=generator)
+    return layers_lib.restore_list(scores, mask)
 
 
 class EmbeddingDNNScorer(nn.Module):
@@ -224,10 +364,13 @@ class RankingModel(nn.Module):
 
   def forward(self, context: FeatureDict, examples: FeatureDict,
               mask: Tensor, training: bool = False,
-              generator: Optional[torch.Generator] = None) -> Tensor:
+              generator: Optional[torch.Generator] = None,
+              intermediates: Optional[Dict[str, Tensor]] = None) -> Tensor:
+    """``intermediates``, a dict, goes to a scorer that fills one
+    (``GAMScorer``)."""
     context = {k: self._transform(v) for k, v in context.items()}
     examples = {k: self._transform(v) for k, v in examples.items()}
-    if generator is None:
-      return self.scorer(context, examples, mask, training=training)
-    return self.scorer(context, examples, mask, training=training,
-                       generator=generator)
+    extra = {} if generator is None else {'generator': generator}
+    if intermediates is not None:
+      extra['intermediates'] = intermediates
+    return self.scorer(context, examples, mask, training=training, **extra)

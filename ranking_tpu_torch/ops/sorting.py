@@ -153,6 +153,15 @@ def neural_sort(logits: Tensor, mask: Optional[Tensor] = None,
   if mask is None:
     mask = torch.ones_like(logits, dtype=torch.bool)
   mask = mask.to(torch.bool)
+  return torch.softmax(neural_sort_exponents(logits, mask) / temperature,
+                       dim=-1)
+
+
+def neural_sort_exponents(logits: Tensor, mask: Tensor) -> Tensor:
+  """The ``[B, L, L]`` exponents of ``neural_sort`` before the temperature
+  and the softmax: ``(n + 1 - 2k) * s_i - sum_j |s_i - s_j|`` over the valid
+  items, ``-inf`` where one of a row's rank and item is invalid, 0 where
+  both are, the rows of invalid ranks moved to the bottom."""
   logits = torch.where(mask, logits, 0.0)
   num_valid = torch.sum(mask.to(torch.int32), dim=1, keepdim=True)
 
@@ -172,9 +181,7 @@ def neural_sort(logits: Tensor, mask: Optional[Tensor] = None,
   p_logits = torch.where(either_valid, p_logits, 0.0)
 
   order = torch.argsort(-mask.to(torch.int32), dim=1, stable=True)
-  p_logits = torch.gather(p_logits, 1,
-                          order[:, :, None].expand(p_logits.shape))
-  return torch.softmax(p_logits / temperature, dim=-1)
+  return torch.gather(p_logits, 1, order[:, :, None].expand(p_logits.shape))
 
 
 def sample_gumbel(generator: Optional[torch.Generator],

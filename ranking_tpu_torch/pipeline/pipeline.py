@@ -287,20 +287,21 @@ class SimplePipeline:
     state = self.ckpt.restore(state)  # preemption-safe resume
     self._tb = tensorboard.SummaryWriter(
         os.path.join(hp.model_dir, 'tensorboard'))
+    step_fn = None
     if sparse_tx is not None:
+      # The sparse step wherever the model's naming ties every lazy table
+      # to a batch feature; otherwise the plain step, whose tables' dense
+      # gradients still get the lazy-row update (sparse_tx.update).
       efs = sparse_lib.derive_embed_features(
           sparse_lib.named_paths(state.model), sample.context,
           sample.examples, table_pattern=sparse_tx.table_pattern)
       tables = set(sparse_lib.partition(sparse_lib.named_paths(state.model),
                                         sparse_tx)[1])
-      if not efs or {ef.param_path for ef in efs} != tables:
-        raise NotImplementedError(
-            'lazy tables that no batch feature names need the '
-            'dense-gradient lazy update, which is not ported yet')
-      step_fn = steps.make_sparse_train_step(
-          self.loss_fn, efs, multi_task_weights=self._task_weights,
-          device=self.device)
-    else:
+      if efs and {ef.param_path for ef in efs} == tables:
+        step_fn = steps.make_sparse_train_step(
+            self.loss_fn, efs, multi_task_weights=self._task_weights,
+            device=self.device)
+    if step_fn is None:
       step_fn = steps.make_train_step(
           self.loss_fn, multi_task_weights=self._task_weights,
           device=self.device)

@@ -16,9 +16,6 @@ Parameters are named by '/'-joined paths made from the ``nn.Module`` names
 (``scorer/embed_query_tokens/embedding``), the JAX package's flax paths,
 so that one ``table_pattern`` or ``EmbedFeature`` names the same table in
 both packages.
-
-The dense-gradient ``update`` of the JAX package (``_compact_touched_rows``,
-``_lazy_update``, ``_lazy_adagrad_update``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -179,14 +176,17 @@ class LazyAdam:
   # Parameters whose path matches (re.search) get the lazy update; they
   # must be >= 2-D with the vocabulary as the leading axis.
   table_pattern: str = r'embedding'
+  # The dense-gradient update's bound on the rows it steps a table and a
+  # step; rows past it are dropped and counted in state['dropped'].
+  max_rows: int = 8192
 
   def matches(self, path: str) -> bool:
     return re.search(self.table_pattern, path) is not None
 
   def init(self, sparse_params: Mapping[str, Tensor]) -> Dict[str, Any]:
-    """Moments as separate ``[vocab, dim]`` tensors beside each table.
-    ``dropped`` keeps the JAX package's layout; only its dense-gradient
-    update (not ported yet) writes it, so here it stays 0."""
+    """Moments as separate ``[vocab, dim]`` tensors beside each table,
+    the step ``count`` and the ``dropped`` rows of the dense-gradient
+    update (int32 on the tables' device)."""
     state: Dict[str, Any] = {
         p: {'m': torch.zeros_like(x), 'v': torch.zeros_like(x)}
         for p, x in sparse_params.items()}
@@ -215,31 +215,66 @@ class LazyAdam:
     ``table[uids]`` (the step's forward slab, a copy). Returns
     ``(sparse_params, state)``, updated.
     """
-    lr = _lr(self.learning_rate, state['count'])
-    count = state['count'] + 1
-    t = count.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.full_like(t, self.b1), t)
-    bc2 = 1.0 - torch.pow(torch.full_like(t, self.b2), t)
+    step = self._row_step(state['count'])
     use_kernel = rows_lib.enabled()
     for p, (uids, g, filled) in row_grads.items():
       table, m, v = sparse_params[p], state[p]['m'], state[p]['v']
-      if table.ndim < 2:
-        raise ValueError(
-            f'LazyAdam table must be >= 2-D, got shape {tuple(table.shape)}')
+      _check_table(self, table)
       touched, safe = _touched(uids, g, filled)
       if row_params is not None and p in row_params:
         p_r = row_params[p]
       else:
         p_r = table.index_select(0, safe)
-      m_r, v_r = m.index_select(0, safe), v.index_select(0, safe)
+      _scatter_rows_multi_auto(
+          (table, m, v), uids, touched,
+          step(g, p_r, m.index_select(0, safe), v.index_select(0, safe)),
+          use_kernel)
+    state['count'].add_(1)
+    return sparse_params, state
+
+  def _row_step(self, count: Tensor):
+    """The step of ``count`` (pre-increment) as a function of the rows'
+    gradients, parameters and moments, giving their new values."""
+    lr = _lr(self.learning_rate, count)
+    t = (count + 1).to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.full_like(t, self.b1), t)
+    bc2 = 1.0 - torch.pow(torch.full_like(t, self.b2), t)
+
+    def step(g, p_r, m_r, v_r):
       new_m = self.b1 * m_r + (1.0 - self.b1) * g
       new_v = self.b2 * v_r + (1.0 - self.b2) * g * g
       # float32 arithmetic from here whatever the table's dtype, as the
       # JAX package's float32 bias corrections promote it.
-      step = lr * (new_m.to(bc1.dtype) / bc1) / (
+      delta = lr * (new_m.to(bc1.dtype) / bc1) / (
           torch.sqrt(new_v.to(bc2.dtype) / bc2) + self.eps)
-      _scatter_rows_multi_auto((table, m, v), uids, touched,
-                               (p_r - step, new_m, new_v), use_kernel)
+      return p_r - delta, new_m, new_v
+
+    return step
+
+  @torch.no_grad()
+  def update(
+      self,
+      sparse_grads: Mapping[str, Tensor],
+      state: Dict[str, Any],
+      sparse_params: Mapping[str, Tensor],
+  ) -> Tuple[Mapping[str, Tensor], Dict[str, Any]]:
+    """Dense-gradient update: ``sparse_grads`` maps a table path to the
+    table's whole gradient. The rows with a non-zero gradient, at most
+    ``max_rows`` of them, are stepped as ``update_rows`` steps them and
+    written back in place into the tables and the moments; rows past the
+    bound keep their values and add to ``state['dropped']``. A table
+    without a gradient keeps its state. Returns ``(sparse_params, state)``,
+    updated."""
+    step = self._row_step(state['count'])
+    for p, g in sparse_grads.items():
+      table, m, v = sparse_params[p], state[p]['m'], state[p]['v']
+      _check_table(self, table)
+      idx, filled, n_dropped = _compact_touched_rows(g, self.max_rows,
+                                                     table.shape[0])
+      _write_compacted((table, m, v), idx, filled, step(
+          g.index_select(0, idx), table.index_select(0, idx),
+          m.index_select(0, idx), v.index_select(0, idx)))
+      state['dropped'].add_(n_dropped)
     state['count'].add_(1)
     return sparse_params, state
 
@@ -254,6 +289,7 @@ class LazyAdagrad:
   initial_accumulator_value: float = 0.1
   eps: float = 1e-7  # optax.adagrad's default
   table_pattern: str = r'embedding'
+  max_rows: int = 8192  # as LazyAdam's
 
   def matches(self, path: str) -> bool:
     return re.search(self.table_pattern, path) is not None
@@ -278,25 +314,105 @@ class LazyAdagrad:
   ) -> Tuple[Mapping[str, Tensor], Dict[str, Any]]:
     """Row-level update, in place: 2 row slabs a table (parameter and
     accumulator) where LazyAdam writes 3; see ``LazyAdam.update_rows``."""
-    lr = _lr(self.learning_rate, state['count'])
+    step = self._row_step(state['count'])
     use_kernel = rows_lib.enabled()
     for p, (uids, g, filled) in row_grads.items():
       table, acc = sparse_params[p], state[p]['acc']
-      if table.ndim < 2:
-        raise ValueError(
-            f'LazyAdagrad table must be >= 2-D, got shape '
-            f'{tuple(table.shape)}')
+      _check_table(self, table)
       touched, safe = _touched(uids, g, filled)
       if row_params is not None and p in row_params:
         p_r = row_params[p]
       else:
         p_r = table.index_select(0, safe)
-      new_acc = acc.index_select(0, safe) + g * g
-      step = lr * g * _adagrad_inv(new_acc, self.eps)
       _scatter_rows_multi_auto((table, acc), uids, touched,
-                               (p_r - step, new_acc), use_kernel)
+                               step(g, p_r, acc.index_select(0, safe)),
+                               use_kernel)
     state['count'].add_(1)
     return sparse_params, state
+
+  def _row_step(self, count: Tensor):
+    """The step of ``count`` (pre-increment) as a function of the rows'
+    gradients, parameters and accumulators, giving their new values."""
+    lr = _lr(self.learning_rate, count)
+
+    def step(g, p_r, acc_r):
+      new_acc = acc_r + g * g
+      return p_r - lr * g * _adagrad_inv(new_acc, self.eps), new_acc
+
+    return step
+
+  @torch.no_grad()
+  def update(
+      self,
+      sparse_grads: Mapping[str, Tensor],
+      state: Dict[str, Any],
+      sparse_params: Mapping[str, Tensor],
+  ) -> Tuple[Mapping[str, Tensor], Dict[str, Any]]:
+    """Dense-gradient update, in place; see ``LazyAdam.update``."""
+    step = self._row_step(state['count'])
+    for p, g in sparse_grads.items():
+      table, acc = sparse_params[p], state[p]['acc']
+      _check_table(self, table)
+      idx, filled, n_dropped = _compact_touched_rows(g, self.max_rows,
+                                                     table.shape[0])
+      _write_compacted((table, acc), idx, filled, step(
+          g.index_select(0, idx), table.index_select(0, idx),
+          acc.index_select(0, idx)))
+      state['dropped'].add_(n_dropped)
+    state['count'].add_(1)
+    return sparse_params, state
+
+
+def _check_table(spec, table: Tensor) -> None:
+  if table.ndim < 2:
+    raise ValueError(f'{type(spec).__name__} table must be >= 2-D, got '
+                     f'shape {tuple(table.shape)}')
+
+
+def _compact_touched_rows(g: Tensor, max_rows: int, n_table_rows: int
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
+  """The ids of the rows with a non-zero gradient, in ascending order, in
+  the first slots of a ``[k]`` buffer, ``k = min(max_rows, rows)``: row r
+  goes to slot (touched rows before r). O(rows), no sort, and no host
+  synchronisation, so that a CUDA graph captures it: a touched row past
+  slot k - 1 goes to a dump slot k of a ``[k + 1]`` buffer, which is then
+  cut off.
+
+  Returns ``(idx [k] int64, filled [k] bool, n_dropped)``: the unfilled
+  slots hold 0; ``n_dropped`` (int32, 0-d) counts the touched rows that
+  found no slot.
+  """
+  touched = torch.sum(torch.abs(g), dim=tuple(range(1, g.ndim))) > 0
+  k = min(max_rows, n_table_rows)
+  n = touched.shape[0]
+  slot = torch.clamp(torch.cumsum(touched.to(torch.int64), 0) - 1, max=k)
+  slot = torch.where(touched, slot, k)
+  rows = torch.arange(n, dtype=torch.int64, device=g.device)
+  idx = torch.zeros((k + 1,), dtype=torch.int64, device=g.device).scatter_(
+      0, slot, rows)[:k]
+  n_rows = torch.sum(touched, dtype=torch.int32)
+  filled = torch.arange(k, device=g.device) < n_rows
+  return idx, filled, torch.clamp(n_rows - k, min=0)
+
+
+def _write_compacted(bufs: Sequence[Tensor], idx: Tensor, filled: Tensor,
+                     rows_list: Sequence[Tensor]) -> None:
+  """Writes row i of each of ``rows_list`` into row ``idx[i]`` of its
+  buffer where ``filled[i]``, in place, and nothing else: the JAX package's
+  ``.at[dest].set(rows, mode='drop')`` with no host synchronisation. Every
+  unfilled slot writes the row of slot 0 (``idx[0]``) with the value slot 0
+  writes, or that row's own value when slot 0 is unfilled too, so that the
+  duplicate writes of one row carry the same bits and the order in which
+  ``index_copy_`` lands them does not matter. The buffer's dtype decides
+  what is stored."""
+  first = idx[:1]
+  dest = torch.where(filled, idx, first)
+  for buf, rows in zip(bufs, rows_list):
+    rows = rows.to(buf.dtype)
+    shape = (-1,) + (1,) * (rows.ndim - 1)
+    head = torch.where(filled[:1].reshape(shape), rows[:1],
+                       buf.index_select(0, first))
+    buf.index_copy_(0, dest, torch.where(filled.reshape(shape), rows, head))
 
 
 def _adagrad_inv(acc: Tensor, eps: float) -> Tensor:

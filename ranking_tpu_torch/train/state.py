@@ -7,7 +7,9 @@ statistics live in the ``nn.Module`` and the moments in the
 ``torch.optim.Optimizer``, and a train step updates both in place. With a
 ``sparse_tx`` (``train.sparse.LazyAdam`` or ``LazyAdagrad``) the embedding
 tables leave the optimizer: the sparse train step steps their touched rows
-and keeps their moments in ``sparse_opt_state``, beside the tables.
+and keeps their moments in ``sparse_opt_state``, beside the tables; the
+plain train step hands their dense gradients to ``sparse_tx.update``
+(``TrainState.apply_gradients``).
 """
 
 from __future__ import annotations
@@ -226,6 +228,30 @@ class TrainState:
   @property
   def device(self) -> torch.device:
     return next(self.model.parameters()).device
+
+  def _tables(self) -> dict:
+    return sparse_lib.partition(sparse_lib.named_paths(self.model),
+                                self.sparse_tx)[1]
+
+  def zero_grad(self) -> None:
+    """Drops every parameter's gradient, the tables' too."""
+    self.optimizer.zero_grad(set_to_none=True)
+    if self.sparse_tx is not None:
+      for table in self._tables().values():
+        table.grad = None
+
+  def apply_gradients(self) -> None:
+    """One update from the gradients in the parameters' ``.grad``, in
+    place (the JAX package's ``apply_gradients``): the dense optimizer
+    steps its parameters; with a ``sparse_tx`` the tables, which the dense
+    optimizer does not hold, go to ``sparse_tx.update`` with their dense
+    gradients (a table the loss did not reach has none and keeps its
+    state). ``step`` is the caller's to advance."""
+    self.optimizer.step()
+    if self.sparse_tx is not None:
+      tables = self._tables()
+      grads = {p: t.grad for p, t in tables.items() if t.grad is not None}
+      self.sparse_tx.update(grads, self.sparse_opt_state, tables)
 
 
 def create_train_state(

@@ -124,24 +124,26 @@ def make_train_step(
   The step updates ``state`` in place and returns it: parameters and
   optimizer moments by the optimizer, running batch statistics by the
   train-mode forward. Metrics are 0-d tensors on the device.
+
+  On a state with a ``sparse_tx`` the tables are differentiated whole and
+  their dense gradients go to ``sparse_tx.update`` (the dense-gradient
+  lazy update, ``TrainState.apply_gradients``); ``make_sparse_train_step``
+  is the step that never builds them, where batch features name the
+  tables.
   """
   device = resolve_device(device)
   _total_loss = _make_total_loss(loss_fn, multi_task_weights)
 
   def train_step(state: TrainState, batch: RankingBatch,
                  generator: Optional[torch.Generator] = None):
-    if state.sparse_tx is not None:
-      raise NotImplementedError(
-          'make_train_step on a state with sparse_tx (the dense-gradient '
-          'lazy update) is not ported yet; use make_sparse_train_step')
     batch = restore_flat_examples(batch.to(device))
-    state.optimizer.zero_grad(set_to_none=True)
+    state.zero_grad()
     extra = {} if generator is None else {'generator': generator}
     logits = state.model(batch.context, batch.examples, batch.mask,
                          training=True, **extra)
     loss = _total_loss(batch.labels, logits, batch.features, generator)
     loss.backward()
-    state.optimizer.step()
+    state.apply_gradients()
     state.step += 1
     return state, _sanity_metrics(loss, batch, logits)
 

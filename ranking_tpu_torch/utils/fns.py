@@ -1,17 +1,19 @@
 """Named gain and rank-discount functions shared by metrics.
 
-The port's copy of the functions of ``ranking_tpu/utils/fns.py`` (the
-reference's tensorflow_ranking/python/keras/utils.py:50-135), on tensors.
-Its registry of names waits for the pipeline, which reads them.
+The port's copy of ``ranking_tpu/utils/fns.py`` (the reference's
+tensorflow_ranking/python/keras/utils.py:50-135), on tensors, with its
+registry of names (``get_gain_fn``, ``get_rank_discount_fn``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Dict
 
 import torch
 
 Tensor = torch.Tensor
+ScalarFn = Callable[[Tensor], Tensor]
 
 # A 0-d tensor, so that log(2) / x is one true division as in the JAX
 # package (a Python float on the left would become reciprocal(x) * log(2),
@@ -53,3 +55,31 @@ def symmetric_log1p(x: Tensor) -> Tensor:
   """f(x) = sign(x) * log(1 + |x|)."""
   return torch.sign(x) * torch.log1p(torch.abs(x))
 
+
+
+GAIN_FNS: Dict[str, ScalarFn] = {
+    'identity': identity,
+    'pow_minus_1': pow_minus_1,
+    'is_greater_equal_1': is_greater_equal_1,
+    'symmetric_log1p': symmetric_log1p,
+}
+
+RANK_DISCOUNT_FNS: Dict[str, ScalarFn] = {
+    'inverse': inverse,
+    'log2_inverse': log2_inverse,
+    'log1p_inverse': log1p_inverse,
+}
+
+
+def get_gain_fn(name: str) -> ScalarFn:
+  if name not in GAIN_FNS:
+    raise ValueError(f'Unknown gain fn {name!r}; choices: {list(GAIN_FNS)}')
+  return GAIN_FNS[name]
+
+
+def get_rank_discount_fn(name: str) -> ScalarFn:
+  if name not in RANK_DISCOUNT_FNS:
+    raise ValueError(
+        f'Unknown rank discount fn {name!r}; choices: '
+        f'{list(RANK_DISCOUNT_FNS)}')
+  return RANK_DISCOUNT_FNS[name]

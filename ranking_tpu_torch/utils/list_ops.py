@@ -190,13 +190,22 @@ def sorted_ranks(scores: Tensor,
       torch.int32)
 
 
-def organize_valid_indices(is_valid: Tensor) -> Tensor:
-  """Per-row int64 indices placing valid items first, in order.
+def organize_valid_indices(is_valid: Tensor,
+                           draws: Optional[Tensor] = None) -> Tensor:
+  """Per-row int64 indices placing valid items first.
 
-  Scatters each valid index to its compacted position (cumsum) and each
-  invalid index after the valid run: O(B L), no sort.
+  Deterministic (no ``draws``): each valid index goes to its compacted
+  position (cumsum) and each invalid one after the valid run, O(B L), no
+  sort. Shuffled: with ``[B, L]`` uniform [0, 1) ``draws`` (the JAX
+  package's ``key`` draws them), a stable argsort of
+  ``-where(valid, u, -1e-6)``, the JAX package's, so the valid items come
+  first in a random order and the invalid ones after them in list order.
   """
   batch, list_size = is_valid.shape
+  if draws is not None:
+    rand = torch.where(is_valid, draws.to(is_valid.device, torch.float32),
+                       -1e-6)
+    return torch.argsort(-rand, dim=1, stable=True)
   valid = is_valid.to(torch.int64)
   positions = torch.cumsum(valid, dim=1) - 1
   num_valid = positions[:, -1:] + 1
@@ -276,6 +285,36 @@ def ragged_to_dense(
   mask = torch.from_numpy(
       np.arange(size)[None, :] < np.asarray(lengths)[:, None])
   return labels, predictions, weights, mask
+
+
+def de_noise(counts: Tensor, noise: Tensor, ratio: float = 0.9) -> Tensor:
+  """Exact MLE de-noising of a count distribution against a noise mixture
+  (tensorflow_ranking/python/utils.py:359).
+
+  Solves for the true distribution assuming
+  ``observed ~ ratio * noise + (1 - ratio) * true`` per row, by the sorted
+  simplex projection of Zhang & Xu, "Fast Exact Maximum Likelihood
+  Estimation for Mixture of Language Models". float32, ``[B, N]``.
+  """
+  if not 0.0 < ratio < 1.0:
+    raise ValueError(f'ratio must be in (0, 1), got {ratio}')
+  odds = (1.0 - ratio) / ratio
+  counts = counts.to(torch.float32)
+  noise = noise.to(torch.float32)
+  noise = noise / torch.sum(noise, dim=1, keepdim=True)
+
+  order = torch.argsort(-(counts / noise), dim=1, stable=True)
+  sorted_counts = torch.gather(counts, 1, order)
+  sorted_noise = torch.gather(noise, 1, order)
+  is_pos = ((odds + torch.cumsum(sorted_noise, dim=1))
+            / torch.cumsum(sorted_counts, dim=1)
+            > sorted_noise / sorted_counts).to(torch.float32)
+  lagrangian = (
+      torch.sum(sorted_counts * is_pos, dim=1, keepdim=True)
+      / (1.0 + torch.sum(sorted_noise * is_pos, dim=1, keepdim=True) / odds))
+  res = (sorted_counts / lagrangian - sorted_noise / odds) * is_pos
+  inverse = torch.argsort(order, dim=1, stable=True)
+  return torch.gather(res, 1, inverse)
 
 
 def parse_keys_and_weights(key: str) -> Dict[str, float]:

@@ -15,6 +15,8 @@ import torch
 
 from ranking_tpu_torch.data import dataset
 from ranking_tpu_torch.data import trec
+from ranking_tpu_torch.models import groupwise
+from ranking_tpu_torch.models import layers
 from ranking_tpu_torch.models import scorers
 from ranking_tpu_torch.ops import aggregated
 from ranking_tpu_torch.pipeline import export
@@ -36,7 +38,9 @@ for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
              'data.parsers', 'data.dataset', 'utils.tensorboard',
              'data.trec', 'ops.aggregated', 'pipeline.export',
              'ops.losses', 'ops.sorting', 'ops.loss_registry',
-             'models.scorers', 'convert', 'train.steps'):
+             'models.scorers', 'models.layers', 'models.groupwise',
+             'utils.fns', 'utils.list_ops', 'train.sparse', 'train.state',
+             'convert', 'train.steps'):
   assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')
@@ -132,3 +136,32 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
                                        sparse_tx=sparse.LazyAdam())
   assert state.sparse_opt_state['scorer/embed_q/embedding']['m'].device == (
       torch.device('cpu'))
+
+
+def test_the_other_scorers_and_the_dense_lazy_path_refuse_a_missing_card(
+    monkeypatch):
+  """GAM, groupwise, DIN and a Bilinear head build on the CPU, but their
+  train state, like every entry point, asks for the card; so does the
+  dense-gradient lazy path (a state with a ``sparse_tx`` under the plain
+  train step)."""
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  models = [
+      scorers.RankingModel(scorers.GAMScorer((4,), {'x': 1})),
+      scorers.RankingModel(groupwise.GroupwiseDNNScorer(6, group_size=2)),
+      scorers.RankingModel(scorers.DINScorer(3, head_size=4,
+                                             hidden_layer_dims=(4,))),
+      layers.Bilinear(3, 2)]
+  for model in models:
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      state_lib.create_train_state(model)
+    state_lib.create_train_state(model, device='cpu')
+  embedding_model = scorers.RankingModel(
+      scorers.EmbeddingDNNScorer((4,), {'q': 10}, embedding_dim=2))
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    state_lib.create_train_state(embedding_model,
+                                 sparse_tx=sparse.LazyAdam(max_rows=4))
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    steps.make_train_step(lambda *a, **k: None)
+  state = state_lib.create_train_state(
+      embedding_model, device='cpu', sparse_tx=sparse.LazyAdagrad(max_rows=4))
+  assert state.sparse_opt_state['dropped'].device == torch.device('cpu')

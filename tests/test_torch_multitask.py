@@ -112,8 +112,8 @@ def test_multitask_scorer_carried_over_from_flax(form):
   examples, tokens, mask, _ = _batch()
   feats = _features(form, examples, tokens)
   jmodel, tmodel = _models(form)
-  variables = jmodel.init(jax.random.PRNGKey(0), {}, feats, jnp.asarray(mask),
-                          training=False)
+  variables = jax.jit(jmodel.init, static_argnames='training')(
+      jax.random.PRNGKey(0), {}, feats, jnp.asarray(mask), training=False)
   variables = _randomize(jax.tree.map(np.asarray, dict(variables)),
                          np.random.RandomState(1))
   paths = {'built': ('DNNScorer_0', 'Tower_0'), 'dnn_body': ('body',
@@ -121,8 +121,8 @@ def test_multitask_scorer_carried_over_from_flax(form):
            'embedding_body': ('body', 'dnn', 'Tower_0')}[form]
   assert convert._at(variables['params']['scorer'], paths) is not None
   tmodel.load_state_dict(convert.from_flax(variables))
-  want = jmodel.apply(variables, {}, feats, jnp.asarray(mask),
-                      training=False)
+  want = jax.jit(jmodel.apply, static_argnames='training')(
+      variables, {}, feats, jnp.asarray(mask), training=False)
   got = tmodel({}, {k: torch.from_numpy(v) for k, v in feats.items()},
                torch.from_numpy(mask))
   assert sorted(got) == sorted(want) == sorted(TASKS)
@@ -193,8 +193,8 @@ def test_multitask_eval_step_routes_and_weighs_as_jax():
       tfns, loss_fn={t: loss_registry.make_loss_fn(k)
                      for t, k in LOSSES.items()},
       multi_task_weights=WEIGHTS, device='cpu')
-  jstates, jlogits = jstep(state, jbatch,
-                           jax_train.init_metric_states(jfns, with_loss=True))
+  jstates, jlogits = jax.jit(jstep)(
+      state, jbatch, jax_train.init_metric_states(jfns, with_loss=True))
   tstates, tlogits = tstep(
       tmodel, tbatch,
       steps.init_metric_states(tfns, with_loss=True, device='cpu'))

@@ -476,8 +476,11 @@ def test_sparse_step_refuses_what_it_cannot_train():
   with pytest.raises(ValueError, match='requires a TrainState'):
     steps.make_sparse_train_step(loss, efs, device='cpu')(
         state_lib.create_train_state(_port_model(), device='cpu'), batch)
-  with pytest.raises(NotImplementedError, match='not ported yet'):
-    steps.make_train_step(loss, device='cpu')(state, batch)
+  # The plain step trains such a state: the tables' dense gradients go to
+  # the lazy update (held against the JAX package in
+  # tests/test_torch_lazy_dense.py).
+  steps.make_train_step(loss, device='cpu')(state, batch)
+  assert int(state.sparse_opt_state['count']) == 1
 
 
 def test_sparse_state_lives_beside_the_tables_and_bf16_tables_keep_dtype():
