@@ -4,12 +4,13 @@ training paths, its K-step dispatch, its training pipeline, its ELWC
 path (serialized protos through the native loader, and serving requests),
 its evaluation and serving artifact (the whole metric suite, the eval
 step as a CUDA graph, query-id and TREC-run evaluation, ``export_predictor``
-/ ``load_predictor``), and the whole loss zoo and multi-task training on
-one CUDA card.
+/ ``load_predictor``), the whole loss zoo and multi-task training, the
+other scorers, and the transformer encoder family on one CUDA card.
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --anchor-seeds N
     python3 chip_smoke.py --scorers-only
+    python3 chip_smoke.py --encoder-only
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -246,6 +247,35 @@ Phases (any failure exits non-zero before the last line is printed):
    ``task/ndcg@k`` suite, and the pipeline's graphed eval == the eager
    step it wraps bit for bit, its history == the eager results.
 
+22. the other scorers at their examples' widths (GAM, groupwise, DIN),
+   ``Bilinear`` and the dense-gradient lazy update, then the fused rows'
+   and rows 7-8's times at their shapes;
+23. the transformer encoder family at the repo's BERT-base profile
+   (benchmarks/encoder_profile.py:27-30: vocabulary 30,522, hidden 768, 4
+   layers, 12 heads, mlp 3,072; 512 positions, 2 segment types, dropout
+   0.1) in ``EncoderScorer``, B = 8 lists x L = 8 documents x T = 128
+   tokens, softmax, Adam 1e-3, float32: (a) the eval forward against a
+   float64 recompute on the CPU (phase 4's tolerance), the first step at
+   dropout 0 against the same step in float64 (loss and every gradient to
+   ``ANCHOR_TOL``), 10 graph replays == 10 eager steps bitwise at dropout
+   0.1 with a CUDA generator, ms a step graph and eager, TFLOP/s; (b)
+   ``remat=True`` == ``remat=False`` bitwise over two steps, the peak
+   memory of each; (c) the sparse token step (``LazyAdam`` on
+   ``token_embed/embedding``) against the dense-gradient lazy step within
+   ``SPARSE_TOL``, untouched rows kept, row 10 once a step eager and in
+   the graph, and row 10 against its plain version bitwise at [30522,
+   768] x 3 on the step's own ids, with its time, bound and
+   ``index_copy_``'s; (d) ``SimplePipeline.train_and_validate`` over ELWC
+   files in TFRBertDataLoader's format (640 train, 128 validation lists),
+   one epoch of 80 steps at K = 10: one capture, lists/s over the
+   replay-only window, then its graphed eval == the eager step bitwise
+   under ``torch.profiler``, whose row 1 on the card equals the wrapper's
+   record; (e) the trained model exported on the CPU,
+   float32 and int8, served on the card: float32 == the live
+   ``Predictor.predict`` at phase 4's tolerance, int8 within ``INT8_TOL``;
+   (f) ``warm_start_from`` of a second seed's flax-path parameters,
+   overlaid bitwise, and ``strict=True`` refusing an unused entry.
+
 With ``--anchor-seeds N`` the script builds the kernels (phases 1-2) and
 then only runs phase 21a's first-step checks of every key, each with the
 float64 steps of ``_hold_first_step``'s anchor whether or not it is needed,
@@ -256,12 +286,15 @@ check failed on any seed.
 
 With ``--scorers-only`` it builds the kernels and runs only phase 22 and
 its timings, and prints (and writes to ``chiprun_out/scorers.json``) one
-``{"scorers": ...}`` line.
+``{"scorers": ...}`` line; with ``--encoder-only`` the same for phase 23
+(``chiprun_out/encoder.json``, one ``{"encoder": ...}`` line).
 
-Prints a ``{"timings": ...}`` line, the card line, a ``{"kernels": [...]}``
-line (each kernel also with its launches in phases 17, 18 and 21, as its
-wrapper counts them and on the card in the profiled runs, and per replay
-of phase 16's graphs), and last ``{"ok": true, "device": {...}}``.
+The log, its ``{"timings": ...}`` line and the ``{"kernels": [...]}`` line
+also go to ``chiprun_out/chip_smoke.log``. Prints a ``{"timings": ...}``
+line, the card line, a ``{"kernels": [...]}`` line (each kernel also with
+its launches in phases 17, 18, 21, 22 and 23, as its wrapper counts them
+and on the card in the profiled runs, and per replay of phase 16's
+graphs), and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -342,9 +375,18 @@ def _fail(msg):
 _START = time.perf_counter()
 
 
+# The run's log is also written to chiprun_out/chip_smoke.log: the end of
+# the standard output alone does not hold a whole run's lines.
+_LOG_FILE = None
+
+
 def _log(msg):
   """A line of the run's log, after the seconds since the script started."""
-  print(f'[{time.perf_counter() - _START:7.1f} s] {msg}', flush=True)
+  line = f'[{time.perf_counter() - _START:7.1f} s] {msg}'
+  print(line, flush=True)
+  if _LOG_FILE is not None:
+    _LOG_FILE.write(line + '\n')
+    _LOG_FILE.flush()
 
 
 def _card_line():
@@ -5562,12 +5604,609 @@ def _time_scorer_kernels():
           'pairwise_gam': _time_pairwise(gen, ((GAM_B, GAM_L),), ('none',))}
 
 
+
+# --- phase 23: the transformer encoder family at BERT-base widths ------------
+
+# The repo's BERT-base profile (benchmarks/encoder_profile.py:27-30):
+# vocabulary 30,522, hidden 768, 4 layers (a cut of BERT-base's 12), 12
+# heads, mlp 3,072, B = 8 lists x L = 8 documents x T = 128 tokens; BERT's
+# 512 positions, 2 segment types and dropout 0.1; softmax loss, Adam 1e-3,
+# float32 with TF32 off.
+ENC_VOCAB, ENC_HIDDEN, ENC_LAYERS, ENC_HEADS = 30_522, 768, 4, 12
+ENC_MLP, ENC_MAX_LEN, ENC_TYPES, ENC_DROPOUT = 3072, 512, 2, 0.1
+ENC_B, ENC_L, ENC_T, ENC_LR = 8, 8, 128, 1e-3
+# Lists hold 4 to 8 documents of 16 to 128 tokens ([CLS] query [SEP]
+# document [SEP], the rest [PAD] under input_mask 0).
+ENC_MIN_DOCS, ENC_MIN_TOKENS = 4, 16
+# 23d: one epoch of 80 steps at K = 10 over 640 train lists (a cut of
+# scale) and 128 validation lists, ELWC in TFRBertDataLoader's format.
+ENC_TRAIN_LISTS, ENC_VALID_LISTS = 640, 128
+ENC_STEPS = ENC_TRAIN_LISTS // ENC_B
+ENC_TABLE = r'token_embed/embedding'
+
+
+def _encoder_model(gen):
+  from ranking_tpu_torch.models import encoder
+  from ranking_tpu_torch.models import scorers
+  return scorers.RankingModel(encoder.EncoderScorer(
+      encoder.TransformerEncoder(
+          ENC_VOCAB, ENC_HIDDEN, ENC_LAYERS, ENC_HEADS, ENC_MLP, ENC_MAX_LEN,
+          type_vocab_size=ENC_TYPES, dropout=ENC_DROPOUT, generator=gen),
+      dropout=ENC_DROPOUT, generator=gen))
+
+
+def _encoder_copy(pristine, dropout=ENC_DROPOUT, remat=False,
+                  dtype=None, device='cuda'):
+  """A copy of ``pristine`` at another dropout rate, remat switch, or
+  compute and parameter dtype (float64 for the recomputes)."""
+  import copy
+  model = copy.deepcopy(pristine)
+  for module in model.modules():
+    if isinstance(getattr(module, 'dropout', None), float):
+      module.dropout = dropout
+    if dtype is not None and hasattr(module, 'dtype'):
+      module.dtype = dtype
+  model.scorer.encoder.remat = remat
+  if dtype is not None:
+    model = model.to(dtype)
+  return model.to(device)
+
+
+def _encoder_arrays(rng, lists):
+  """numpy ``input_ids``, ``input_mask``, ``segment_ids`` ``[lists, L, T]``
+  int64 and labels ``[lists, L]`` (graded 0-4, -1 on padded documents)."""
+  import numpy as np
+  shape = (lists, ENC_L, ENC_T)
+  ids, masks, segs = (np.zeros(shape, np.int64) for _ in range(3))
+  labels = np.full((lists, ENC_L), -1.0, np.float32)
+  for i in range(lists):
+    docs = rng.randint(ENC_MIN_DOCS, ENC_L + 1)
+    labels[i, :docs] = rng.choice(5, docs, p=[.5, .3, .15, .04, .01])
+    query = rng.randint(3, 13)
+    for j in range(docs):
+      n = rng.randint(ENC_MIN_TOKENS, ENC_T + 1)
+      # BERT's vocabulary: word pieces from id 999 on, [CLS] 101, [SEP] 102.
+      ids[i, j, :n] = rng.randint(min(999, ENC_VOCAB // 2), ENC_VOCAB, n)
+      ids[i, j, [0, query + 1, n - 1]] = (101, 102, 102)
+      masks[i, j, :n] = 1
+      segs[i, j, query + 2:n] = 1
+  return ids, masks, segs, labels
+
+
+def _encoder_batches(rng, count):
+  """``count`` flat-fed batches of ENC_B lists."""
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.data import dataset
+  out = []
+  for _ in range(count):
+    ids, masks, segs, labels = _encoder_arrays(rng, ENC_B)
+    out.append(dataset.flatten_examples(batch_lib.batch_from_labels(
+        labels, examples={'input_ids': ids, 'input_mask': masks,
+                          'segment_ids': segs})))
+  return out
+
+
+def _encoder_records(seed, lists):
+  """ELWC records of ``_encoder_arrays`` lists in TFRBertDataLoader's
+  format (examples/encoder_ranking.py:185-195)."""
+  import numpy as np
+  from ranking_tpu_torch.data import proto
+  ids, masks, segs, labels = _encoder_arrays(np.random.RandomState(seed),
+                                             lists)
+  return [proto.make_elwc({}, [
+      {'input_ids': ids[i, j], 'input_mask': masks[i, j],
+       'segment_ids': segs[i, j], 'relevance': [int(labels[i, j])]}
+      for j in range(ENC_L) if labels[i, j] >= 0]) for i in range(lists)]
+
+
+def _encoder_spec():
+  from ranking_tpu_torch.data import parsers
+  spec = {name: parsers.FixedLenFeature((ENC_T,), 'int64', 0)
+          for name in ('input_ids', 'input_mask', 'segment_ids')}
+  spec['relevance'] = parsers.FixedLenFeature((), 'int64', 0)
+  return spec
+
+
+def _encoder_flops(tokens, sequences):
+  """Operations of one train step (forward and backward, 3x the forward's
+  products): the blocks' projections and MLP over every token, attention's
+  two [T, T] products a head, the pooler and score over the [CLS] rows."""
+  h, m = ENC_HIDDEN, ENC_MLP
+  per_token = ENC_LAYERS * 2 * (4 * h * h + 2 * h * m)
+  attention = ENC_LAYERS * sequences * 2 * 2 * ENC_T * ENC_T * h
+  pooled = sequences * 2 * (h * h + h)
+  return 3 * (tokens * per_token + attention + pooled)
+
+
+def _zero_in_theory_encoder(name):
+  """Gradients zero in theory: an attention's key bias (a constant of
+  every logit of a query row, which the softmax removes) and the score's
+  bias (softmax over a list is shift-invariant)."""
+  return name.endswith('.key.bias') or name == 'scorer.score.bias'
+
+
+def _encoder_first_step(pristine, batch):
+  """23a: the eval forward on the card against float64 on the CPU, and the
+  first train step at dropout 0 against the same step in float64 (the
+  encoder has no gate: GELU, softmax, tanh and LayerNorm are smooth, so the
+  float64 step is the step of its own gates): loss and every gradient."""
+  import torch
+  from ranking_tpu_torch.models import layers
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  out = {}
+  model = _encoder_copy(pristine)
+  card = steps.restore_flat_examples(batch.to('cuda'))
+  host = steps.restore_flat_examples(batch)
+  t0 = time.perf_counter()
+  with torch.no_grad():
+    got = model(card.context, card.examples, card.mask).double().cpu()
+    ref = _encoder_copy(pristine, dtype=torch.float64, device='cpu')
+    want = ref(host.context, host.examples, host.mask)
+  del ref
+  mask = host.mask
+  largest = want[mask].abs().max().item()
+  err = (got - want)[mask].abs().max().item()
+  padding = torch.tensor(layers.PADDING_LOGIT, dtype=torch.float32).item()
+  if (not torch.allclose(got[mask], want[mask], rtol=1e-4,
+                         atol=1e-4 * largest)
+      or not bool((got[~mask] == padding).all())):
+    _fail(f'encoder forward: max |diff| {err} vs float64 (largest score '
+          f'{largest}), or a padded document not log(1e-10)')
+  out['forward_err'], out['forward_f64_s'] = err, time.perf_counter() - t0
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  step = steps.make_train_step(loss_fn, device='cuda')
+  grads, losses = {}, {}
+  for dtype in (torch.float32, torch.float64):
+    state = state_lib.create_train_state(
+        _encoder_copy(pristine, dropout=0.0,
+                      dtype=None if dtype == torch.float32 else dtype),
+        state_lib.adam(ENC_LR), device='cuda')
+    state, metrics = step(state, batch)
+    losses[dtype] = metrics['loss'].item()
+    grads[dtype] = {n: p.grad.detach().double().cpu()
+                    for n, p in state.model.named_parameters()}
+    del state
+  top = max(g.abs().max().item() for g in grads[torch.float64].values())
+  errs = {}
+  for name, want_g in grads[torch.float64].items():
+    got_g = grads[torch.float32][name]
+    scale = (top if _zero_in_theory_encoder(name)
+             else want_g.abs().max().item())
+    errs[name] = (got_g - want_g).abs().max().item() / max(scale, 1e-30)
+  loss_err = abs(losses[torch.float32] - losses[torch.float64]) / abs(
+      losses[torch.float64])
+  worst = max(errs, key=errs.get)
+  if loss_err > ANCHOR_TOL or errs[worst] > ANCHOR_TOL:
+    _fail(f'encoder first step (dropout 0) vs float64: loss {loss_err:.3g}, '
+          f'worst gradient {worst} {errs[worst]:.3g} (allowed {ANCHOR_TOL})')
+  out.update(first_step_loss_err=loss_err, first_step_grad_err=errs[worst],
+             first_step_worst=worst)
+  _log(f'encoder: forward of {ENC_B} x {ENC_L} lists == float64 on the CPU '
+       f'within {err:.3g} (largest score {largest:.3g}); first step at dropout '
+       f'0 vs float64: loss {loss_err:.3g}, gradients within '
+       f'{errs[worst]:.3g} of their largest entries ({worst})')
+  del model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return out
+
+
+def _encoder_memory_step(pristine, batch, remat):
+  """23b: two eager steps at dropout 0.1 from a copy of ``pristine`` (a
+  CUDA generator seeded alike for both settings); the second step's peak
+  device memory over what was allocated before it. Returns (state,
+  peak bytes)."""
+  import torch
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  step = steps.make_train_step(loss_registry.make_loss_fn('softmax_loss'),
+                               device='cuda')
+  state = state_lib.create_train_state(
+      _encoder_copy(pristine, remat=remat), state_lib.adam(ENC_LR),
+      device='cuda')
+  rng = torch.Generator(device='cuda').manual_seed(SEED + 71)
+  state, _ = step(state, batch, rng)
+  torch.cuda.synchronize()
+  resident = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  state, _ = step(state, batch, rng)
+  torch.cuda.synchronize()
+  return state, torch.cuda.max_memory_allocated() - resident
+
+
+def _encoder_sparse(pristine, batches, loss_fn):
+  """23c: the sparse token step against the dense-gradient lazy step
+  (``make_train_step`` on the same LazyAdam), one step at dropout 0.1 with
+  equal generators: loss, dense gradients, tables and moments within
+  SPARSE_TOL; rows no id touched keep their bits; row 10 once a step, no
+  other launch; then row 10 against its plain version bitwise on the
+  step's own ids at [30522, 768], n = 3, and timed. Returns (numbers, the
+  step's LazyAdam, the EmbedFeatures)."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import rows
+  from ranking_tpu_torch.train import sparse as sparse_lib
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  out = {}
+  batch = batches[0]
+
+  def lazy():
+    return sparse_lib.LazyAdam(ENC_LR, table_pattern=ENC_TABLE,
+                               max_rows=ENC_B * ENC_L * ENC_T)
+
+  def make_state():
+    return state_lib.create_train_state(
+        _encoder_copy(pristine), state_lib.adam(ENC_LR), device='cuda',
+        sparse_tx=lazy())
+
+  dense_state, sparse_state = make_state(), make_state()
+  efs = sparse_lib.derive_embed_features(
+      sparse_lib.named_paths(sparse_state.model), batch.context,
+      steps.restore_flat_examples(batch).examples, table_pattern=ENC_TABLE)
+  if [(ef.feature, ef.param_path) for ef in efs] != [
+      ('input_ids', 'scorer/encoder/token_embed/embedding')]:
+    _fail(f'encoder sparse: derive_embed_features gave {efs}')
+  path = efs[0].param_path
+  dense_step = steps.make_train_step(loss_fn, device='cuda')
+  sparse_step = steps.make_sparse_train_step(loss_fn, efs, device='cuda')
+  table = sparse_lib.named_paths(dense_state.model)[path]
+  before = table.detach().clone()
+  counts = [steps.kernel_launch_counts()]
+  dense_state, dm = dense_step(
+      dense_state, batch, torch.Generator(device='cuda').manual_seed(SEED))
+  counts.append(steps.kernel_launch_counts())
+  record = []
+  with _recording_updates(sparse_lib.LazyAdam, record):
+    sparse_state, sm = sparse_step(
+        sparse_state, batch, torch.Generator(device='cuda').manual_seed(SEED))
+  counts.append(steps.kernel_launch_counts())
+  torch.cuda.synchronize()
+  launched = [{n: b[n] - a[n] for n in a if b[n] != a[n]}
+              for a, b in zip(counts, counts[1:])]
+  if launched != [{}, {'scatter_rows_multi': 1}]:
+    _fail(f'encoder sparse: launches of the dense lazy step and the sparse '
+          f'step {launched}')
+  loss_err = abs(dm['loss'].item() - sm['loss'].item()) / abs(
+      dm['loss'].item())
+  sparse_params = dict(sparse_state.model.named_parameters())
+  grad_err = max(_rel_err(p.grad, sparse_params[n].grad)[1]
+                 for n, p in dense_state.model.named_parameters()
+                 if p.grad is not None and not n.endswith('token_embed.'
+                                                          'embedding'))
+  differ, worst = _state_diff(sparse_state, dense_state)
+  if max(loss_err, grad_err, worst) > SPARSE_TOL:
+    _fail(f'encoder sparse vs dense lazy step: loss {loss_err:.3g}, dense '
+          f'gradients {grad_err:.3g}, state {worst:.3g} ({differ[:4]})')
+  touched = table.grad.abs().sum(1) > 0
+  for state in (dense_state, sparse_state):
+    t = sparse_lib.named_paths(state.model)[path].detach()
+    if not (torch.equal(t[~touched], before[~touched]) and all(
+        torch.equal(v[~touched], torch.zeros_like(v[~touched]))
+        for v in state.sparse_opt_state[path].values())):
+      _fail('encoder sparse: rows that no id touched changed')
+  out.update(first_step_loss_err=loss_err, first_step_grad_err=grad_err,
+             first_step_state_err=worst, touched_rows=int(touched.sum()),
+             untouched_rows_kept=int((~touched).sum()))
+  _log(f'encoder sparse token step vs the dense lazy step: loss '
+       f'{loss_err:.3g}, dense gradients {grad_err:.3g}, tables, moments '
+       f'and parameters {worst:.3g}; {int(touched.sum())} rows touched, '
+       f'{int((~touched).sum())} kept their bits; row 10 once, nothing else')
+  del dense_state, sparse_state, before, table
+  gc.collect()
+  torch.cuda.empty_cache()
+  # Row 10 at the table's shape and the step's own ids: the slots the step
+  # deduplicated to (filled) and those whose rows it updated (touched).
+  grads, _ = record[0]
+  uids, g, filled = grads[path]
+  valid = filled & (g.abs().sum(1) > 0)
+  gen = torch.Generator(device='cuda').manual_seed(SEED + 72)
+  tables = [torch.randn(ENC_VOCAB, ENC_HIDDEN, device='cuda', generator=gen)
+            for _ in range(3)]
+  updates = [torch.randn(uids.shape[0], ENC_HIDDEN, device='cuda',
+                         generator=gen) for _ in range(3)]
+  twins = [t.clone() for t in tables]
+  before = rows.scatter_rows_multi.launches
+  rows.scatter_rows_multi(tables, uids, valid, updates)
+  rows.scatter_rows_multi_reference(twins, uids, valid, updates)
+  torch.cuda.synchronize()
+  for t, w in zip(tables, twins):
+    if not torch.equal(t, w):
+      _fail('encoder: row 10 != its plain version at the token table')
+  if rows.scatter_rows_multi.launches != before + 1:
+    _fail('encoder: row 10 did not launch')
+  ids64 = uids[valid].long()
+  picked = [u[valid] for u in updates]
+  call = lambda: rows.scatter_rows_multi(tables, uids, valid, updates)  # noqa: E731
+
+  def library():
+    for t, u in zip(tables, picked):
+      t.index_copy_(0, ids64, u)
+
+  n_valid = int(valid.sum())
+  ms = _graph_ms(call, calls=10, replays=10)
+  with rows.plain_versions():
+    plain_ms = _event_ms(call, 10, warmup=2)
+  library_ms = _graph_ms(library, calls=10, replays=10)
+  bound_ms, bound_by = _rows_bound(3, n_valid, ENC_HIDDEN, uids.shape[0])
+  # The launches made here to compare and time row 10 are not the path's.
+  rows.scatter_rows_multi.launches = before
+  out['row10'] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, slots=int(
+                          uids.shape[0]), valid_rows=n_valid)
+  _log(f'encoder: row 10 == its plain version bitwise at [{ENC_VOCAB}, '
+       f'{ENC_HIDDEN}] x 3 on the step\'s {n_valid} touched rows of '
+       f'{uids.shape[0]} slots; {ms:.5f} ms (bound {bound_ms:.5f}, '
+       f'{bound_by}; plain {plain_ms:.4f}; index_copy_ {library_ms:.5f})')
+  del tables, updates, twins, record
+  gc.collect()
+  torch.cuda.empty_cache()
+  return out, lazy, efs
+
+
+def _encoder_pipeline(gen, root):
+  """23d and 23e: ``SimplePipeline.train_and_validate`` over ELWC files in
+  TFRBertDataLoader's format, timed over its replay-only dispatches; its
+  graphed eval against the eager step under ``torch.profiler``, whose row
+  1 on the card must equal the wrapper's record; the trained model
+  exported on the CPU, float32 and int8, and served on the card against
+  the live ``Predictor.predict``."""
+  import copy
+  import os
+  import numpy as np
+  import torch
+  from ranking_tpu_torch.data import tfrecord
+  from ranking_tpu_torch.pipeline import export
+  from ranking_tpu_torch.pipeline import hparams as hparams_lib
+  from ranking_tpu_torch.pipeline import pipeline as pipeline_lib
+  from ranking_tpu_torch.pipeline import serving
+  from ranking_tpu_torch.train import steps
+  out = {}
+  t0 = time.perf_counter()
+  for split, lists, seed in (('train', ENC_TRAIN_LISTS, SEED + 73),
+                             ('vali', ENC_VALID_LISTS, SEED + 74)):
+    tfrecord.write_records(os.path.join(root, f'bert-{split}.tfrecord'),
+                           _encoder_records(seed, lists))
+  out['write_s'] = time.perf_counter() - t0
+  spec = _encoder_spec()
+
+  def builder():
+    return pipeline_lib.SimpleDatasetBuilder(
+        {}, spec, hparams_lib.DatasetHparams(
+            train_input_pattern=os.path.join(root, 'bert-train.tfrecord'),
+            valid_input_pattern=os.path.join(root, 'bert-vali.tfrecord'),
+            train_batch_size=ENC_B, valid_batch_size=ENC_B, list_size=ENC_L,
+            dataset_engine='native_loader'), seed=SEED)
+
+  pipe = pipeline_lib.SimplePipeline(
+      _encoder_copy(_encoder_model(gen)), builder(),
+      hparams_lib.PipelineHparams(
+          model_dir=os.path.join(root, 'model'), num_epochs=1,
+          steps_per_epoch=ENC_STEPS, validation_steps=10 ** 6,
+          learning_rate=ENC_LR, loss='softmax_loss',
+          steps_per_execution=KSTEPS), device='cuda')
+  history, run_s, steady = _timed_pipeline(pipe)
+  if (pipe._multi_step.captures != 1 or pipe.final_state.step != ENC_STEPS
+      or not all(math.isfinite(v) for v in history.values())):
+    _fail(f'encoder pipeline: {pipe._multi_step.captures} captures, step '
+          f'{pipe.final_state.step}, history {history}')
+  graph_ms = [ms / KSTEPS for ms in steady['dispatch_ms']]
+  out['pipeline'] = {'history': history, 'run_s': run_s,
+                     'graph_ms_per_step': graph_ms, **steady}
+  _log(f'encoder pipeline: one capture, {ENC_STEPS} steps, '
+       f'{statistics.median(graph_ms):.4f} ms a step (graph replays), '
+       f'{steady["loop_lists_per_s"]:.1f} lists/s over the replay-only '
+       f'window, run {run_s:.1f} s, loss {history["loss"]:.4f}, val '
+       f'ndcg@5 {history["ndcg@5"]:.4f}')
+  trained = pipe.final_state.model
+  # The pipeline's graphed eval against the eager step it wraps, under
+  # torch.profiler: row 1 (the eval's sort) on the card must equal the
+  # wrapper's eager calls plus what the capture recorded times the replays.
+  eval_step = pipe._eval_step
+  calls, replays = steps.kernel_launch_counts(), eval_step.replays
+  result = {}
+  device_counts = _kernel_counts(lambda: result.update(
+      metrics=_hold_graphed_eval('encoder pipeline', pipe, builder(),
+                                 history)))
+  wrapper = (steps.kernel_launch_counts()['sorted_values_and_ranks']
+             - calls['sorted_values_and_ranks'])
+  per_replay = eval_step.captured_launches().get('sorted_values_and_ranks', 0)
+  expected = wrapper + per_replay * (eval_step.replays - replays)
+  card = device_counts.get(_ENTRY_KERNEL['sorted_values_and_ranks'], 0)
+  if card != expected or card == 0:
+    _fail(f'encoder pipeline: row 1 ran {card} times on the card in the '
+          f'eval passes; the wrapper recorded {wrapper} eager calls and '
+          f'{per_replay} a replay over {eval_step.replays - replays} replays: '
+          f'{expected}')
+  out['eval_metrics'] = result['metrics']
+  out['row1'] = {'wrapper': wrapper, 'per_replay': per_replay,
+                 'replays': eval_step.replays - replays, 'card': card}
+  _log(f'encoder pipeline: its graphed eval == the eager step bitwise; row '
+       f'1 ran {card} times on the card (torch.profiler) in the two passes, '
+       f'as the wrapper recorded: {wrapper} eager calls + {per_replay} a '
+       f'replay x {eval_step.replays - replays} replays')
+  # 23e: the artifact, exported on the CPU, served on the card.
+  records = _encoder_records(SEED + 75, ENC_B * 4)
+  live = serving.Predictor(trained, example_feature_spec=spec,
+                           list_size=ENC_L, label_feature_name='relevance',
+                           device='cuda').predict(records)
+  host_model = copy.deepcopy(trained).cpu()
+  sample = next(iter(builder().valid_batches()))
+  scores = {}
+  t0 = time.perf_counter()
+  for quant in (None, 'int8'):
+    path = os.path.join(root, f'export_{quant}')
+    export.export_predictor(host_model, None, {}, spec, path, sample,
+                            list_size_buckets=(ENC_L,),
+                            label_feature_name='relevance', quantize=quant)
+    scores[quant] = export.load_predictor(path, device='cuda').predict(
+        records)
+  out['export_s'] = time.perf_counter() - t0
+  valid = live > np.float32(math.log(1e-10))
+  scale = float(np.abs(live[valid]).max())
+  f32_err = float(np.abs(scores[None] - live)[valid].max())
+  int8_err = float(np.abs(scores['int8'] - live)[valid].max())
+  if (not np.allclose(scores[None], live, rtol=1e-4, atol=1e-4 * scale)
+      or not np.array_equal(scores[None][~valid], live[~valid])):
+    _fail(f'encoder artifact: float32 scores off the live predictor by '
+          f'{f32_err} (largest {scale})')
+  if int8_err > INT8_TOL * scale:
+    _fail(f'encoder artifact: int8 scores off by {int8_err} (allowed '
+          f'{INT8_TOL} of {scale})')
+  out['export'] = {'float32_err': f32_err, 'int8_err': int8_err,
+                   'largest_score': scale}
+  _log(f'encoder artifact: {len(records)} requests on the card, float32 == '
+       f'live predict within {f32_err:.3g}, int8 within {int8_err:.3g} '
+       f'(largest score {scale:.3g}); export and load '
+       f'{out["export_s"]:.1f} s')
+  del pipe, trained, host_model, eval_step
+  return out
+
+
+def _encoder_warm_start(pristine):
+  """23f: ``warm_start_from`` of the encoder's flax-path parameters from a
+  second seed (``convert.to_flax`` of its state): every encoder parameter
+  overlaid bitwise, the score kept; ``strict=True`` raises on an entry
+  that nothing takes."""
+  import torch
+  from ranking_tpu_torch import convert
+  from ranking_tpu_torch.models import encoder
+  other = _encoder_model(torch.Generator().manual_seed(SEED + 76))
+  tree = convert.to_flax(other.state_dict())['params']['scorer']['encoder']
+  flat = {}
+
+  def walk(node, prefix):
+    for k, v in node.items():
+      if isinstance(v, dict):
+        walk(v, f'{prefix}{k}/')
+      else:
+        flat[f'{prefix}{k}'] = v
+
+  walk(tree, '')
+  mine = pristine.state_dict()
+  merged = encoder.warm_start_from(mine, flat)
+  theirs = other.state_dict()
+  moved = [n for n in mine if n.startswith('scorer.encoder.')]
+  if len(moved) != len(flat) or not all(
+      torch.equal(merged[n], theirs[n]) for n in moved) or not all(
+          torch.equal(merged[n], mine[n]) for n in mine if n not in moved):
+    _fail('encoder warm start: the overlaid parameters are not the second '
+          'seed\'s, or others moved')
+  try:
+    encoder.warm_start_from(mine, {**flat, 'unused/kernel': flat[
+        'pooler/kernel']}, strict=True)
+  except ValueError:
+    pass
+  else:
+    _fail('encoder warm start: strict=True took an unused entry')
+  _log(f'encoder warm start: {len(moved)} parameters overlaid bitwise from '
+       'a second seed by path suffix; strict=True refused an unused entry')
+  return {'overlaid': len(moved)}
+
+
+def _encoder_phase():
+  """Phase 23: the transformer encoder family at BERT-base widths. Returns
+  (numbers, launches a step of each graphed path)."""
+  import os
+  import shutil
+  import numpy as np
+  import torch
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  t0 = time.perf_counter()
+  gen = torch.Generator().manual_seed(SEED + 70)
+  pristine = _encoder_model(gen)
+  batches = _encoder_batches(np.random.RandomState(SEED + 70), 2 * KSTEPS)
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  tokens = int(batches[0].examples['input_mask'].sum())
+  flops = _encoder_flops(ENC_B * ENC_L * ENC_T, ENC_B * ENC_L)
+  out = {'tokens_unmasked': tokens, 'flops_per_step': flops}
+  out.update(_encoder_first_step(pristine, batches[0]))
+  # 23a: 10 replays == 10 eager steps at dropout 0.1, a CUDA generator.
+  step = steps.make_train_step(loss_fn, device='cuda')
+  out['graph'] = _graph_vs_eager_22(
+      'encoder step', lambda: state_lib.create_train_state(
+          _encoder_copy(pristine), state_lib.adam(ENC_LR), device='cuda'),
+      step, batches, True, {})
+  if not out['graph']['bitwise']:
+    _fail('encoder step: two eager runs differ, so graph == eager is not '
+          'bitwise')
+  graph_ms = out['graph']['graph_ms_per_step']
+  out['tflops'] = flops / graph_ms / 1e9
+  # Where an eager step's device time goes, by kernel name (torch.profiler).
+  state = state_lib.create_train_state(
+      _encoder_copy(pristine), state_lib.adam(ENC_LR), device='cuda')
+  rng = torch.Generator(device='cuda').manual_seed(SEED + 77)
+  prof = _profile(lambda: step(state, batches[0], rng), calls=3)
+  gemm = sum(ms for name, ms in prof['by_name_ms'].items()
+             if re.search(r'gemm|xmma|cutlass|sm90', name))
+  out['profile'] = {'device_ms': prof['device_ms'],
+                    'device_ops': prof['device_ops'],
+                    'gemm_ms': gemm,
+                    'by_name_ms': dict(list(prof['by_name_ms'].items())[:10])}
+  del state
+  # 23b: remat == plain, bitwise, and the peak memory of each.
+  plain, out['peak_bytes'] = _encoder_memory_step(pristine, batches[0], False)
+  remat, out['peak_bytes_remat'] = _encoder_memory_step(pristine, batches[0],
+                                                        True)
+  differ, worst = _state_diff(remat, plain)
+  if differ:
+    _fail(f'encoder remat: {len(differ)} tensors differ from the plain '
+          f'step ({differ[:4]}, worst {worst:.3g})')
+  del plain, remat
+  gc.collect()
+  torch.cuda.empty_cache()
+  _log(f'encoder: {graph_ms:.4f} ms a step graphed, '
+       f'{out["graph"]["eager_ms_per_step"]:.4f} eager; '
+       f'{flops / 1e12:.3f} TFLOP a step, {out["tflops"]:.1f} TFLOP/s beside '
+       f'the float32 pipes\' {F32_OPS_PER_S / 1e12:.0f}; an eager step\'s '
+       f'device time {prof["device_ms"]:.3f} ms over '
+       f'{prof["device_ops"]:.0f} operations, matrix products {gemm:.3f} ms; '
+       f'remat == plain '
+       f'bitwise over two steps at dropout 0.1; a step\'s peak over the '
+       f'resident state {out["peak_bytes"] / 2 ** 30:.3f} GiB, with remat '
+       f'{out["peak_bytes_remat"] / 2 ** 30:.3f} GiB')
+  # 23c: the sparse token step.
+  out['sparse'], lazy, efs = _encoder_sparse(pristine, batches, loss_fn)
+  out['sparse_graph'] = _graph_vs_eager_22(
+      'encoder sparse token step', lambda: state_lib.create_train_state(
+          _encoder_copy(pristine), state_lib.adam(ENC_LR), device='cuda',
+          sparse_tx=lazy()),
+      steps.make_sparse_train_step(loss_fn, efs, device='cuda'), batches,
+      True, {'scatter_rows_multi': 1})
+  out['warm_start'] = _encoder_warm_start(pristine)
+  del pristine, batches
+  gc.collect()
+  torch.cuda.empty_cache()
+  # 23d, 23e: the pipeline, export and serving.
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      '.scratch', 'chip_smoke_encoder')
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  try:
+    out.update(_encoder_pipeline(gen, root))
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  gc.collect()
+  torch.cuda.empty_cache()
+  out['phase_s'] = time.perf_counter() - t0
+  _log(f'encoder: phase 23 took {out["phase_s"]:.1f} s')
+  per_step = {'encoder': out['graph']['launches_per_step'],
+              'encoder_sparse': out['sparse_graph']['launches_per_step']}
+  return out, per_step
+
 def main():
   import torch
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available; this script runs on the card',
           file=sys.stderr)
     return 1
+  global _LOG_FILE
+  os.makedirs('chiprun_out', exist_ok=True)
+  _LOG_FILE = open(os.path.join('chiprun_out', 'chip_smoke.log'), 'w')
   from ranking_tpu_torch.data import dataset
   from ranking_tpu_torch.models import layers
   from ranking_tpu_torch.ops.cuda import build
@@ -5620,6 +6259,18 @@ def main():
     line = json.dumps({'scorers': numbers, 'card': card})
     os.makedirs('chiprun_out', exist_ok=True)
     with open(os.path.join('chiprun_out', 'scorers.json'), 'w') as f:
+      f.write(line + '\n')
+    print(line)
+    return 0
+
+  if '--encoder-only' in sys.argv[1:]:
+    _reset_all_launches()
+    numbers, per_step = _encoder_phase()
+    numbers['launches'] = steps.kernel_launch_counts()
+    numbers['launches_per_step'] = per_step
+    line = json.dumps({'encoder': numbers, 'card': card})
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'encoder.json'), 'w') as f:
       f.write(line + '\n')
     print(line)
     return 0
@@ -5891,6 +6542,13 @@ def main():
     if scorer_launches[name] == 0:
       _fail(f'the scorers phase never launched {name}')
   scorer_numbers['times'] = _time_scorer_kernels()
+  # Phase 23: the transformer encoder family; counts from 0 here.
+  _reset_all_launches()
+  encoder_numbers, encoder_per_step = _encoder_phase()
+  encoder_launches = steps.kernel_launch_counts()
+  for name in ('sorted_values_and_ranks', 'scatter_rows_multi'):
+    if encoder_launches[name] == 0:
+      _fail(f'the encoder phase never launched {name}')
   scorer_per_step = {
       'gam': scorer_numbers['gam']['graph']['launches_per_step'],
       'groupwise': scorer_numbers['groupwise']['graph']['launches_per_step'],
@@ -5914,7 +6572,7 @@ def main():
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
       'kstep': kstep, 'pipeline': pipeline_numbers, 'elwc': elwc_numbers,
       'eval': eval_numbers, 'zoo': zoo_numbers, 'scorers': scorer_numbers,
-      'card': card}
+      'encoder': encoder_numbers, 'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
@@ -6069,8 +6727,23 @@ def main():
     entry['launches_scorers_per_step'] = {
         k: v[entry['name']] for k, v in scorer_per_step.items()
         if v.get(entry['name'])}
+    # Phase 23: the wrappers' count over the phase, and a step of each
+    # graphed path (what its capture recorded).
+    entry['launches_encoder_phase'] = encoder_launches[entry['name']]
+    entry['launches_encoder_per_step'] = {
+        k: v[entry['name']] for k, v in encoder_per_step.items()
+        if v.get(entry['name'])}
+  # Row 10 at the encoder's token table, [30522, 768] x 3, the sparse
+  # step's own ids.
+  kernels[-1].update({f'encoder_{k}': v for k, v in
+                      encoder_numbers['sparse']['row10'].items()})
+  # Row 1 in the encoder pipeline's profiled eval passes, on the card and
+  # as the wrapper recorded.
+  kernels[0]['launches_encoder_pipeline_eval'] = encoder_numbers['row1']
   kernels[0]['launches_zoo_card_per_step'] = {
       k: zoo_numbers['keys'][k]['sort_launches_card'] for k in ZOO_SORT_KEYS}
+  _LOG_FILE.write(json.dumps({'kernels': kernels}) + '\n')
+  _LOG_FILE.close()
   print(card)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

@@ -45,7 +45,13 @@ The other scorers and layers:
   -> ``attentions.i.{query, key, value, out}.{kernel, bias}`` in flax's
   layout (``[F, heads, head_dim]``, ``[heads, head_dim, F]``);
 * a ``Bilinear`` layer's own variables: ``bilinear_kernel`` ``[Dx, O, Dy]``
-  and ``bias`` keep their names and layout.
+  and ``bias`` keep their names and layout;
+* ``EncoderScorer`` (``scorer/encoder/...`` and ``scorer/score``) and a bare
+  ``TransformerEncoder`` (``token_embed``, ``pos_embed``, ``type_embed``,
+  ``LayerNorm_0``, ``block_i/{MultiHeadDotProductAttention_0/{query, key,
+  value, out}, LayerNorm_0, Dense_0, Dense_1, LayerNorm_1}``, ``pooler``):
+  the port's encoder keeps flax's names and layouts, so each path maps to
+  the name with '.' for '/', the leaf as it is.
 
 ``to_flax`` is the inverse, for anything keyed like the port's
 ``state_dict``: parameters after a train step, or gradients
@@ -80,6 +86,10 @@ _ATTENTION = ('scorer', 'DocumentInteractionAttention_0')
 _ATTENTION_PREFIX = 'scorer.attention.'
 _MHA_PARTS = ('query', 'key', 'value', 'out')
 _BILINEAR = ('bilinear_kernel', 'bias')
+# The encoder family's flax paths, which are the port's names.
+_ENCODER = re.compile(
+    r'(scorer\.(encoder|score)\.|(token_embed|pos_embed|type_embed'
+    r'|LayerNorm_0|block_\d+|pooler)\.)')
 
 
 def _at(tree: Mapping[str, Any], path) -> Any:
@@ -111,6 +121,9 @@ def from_flax(variables: Mapping[str, Any],
   stats = variables.get('batch_stats', {})
   if set(params) == set(_BILINEAR):
     return OrderedDict((name, _tensor(params[name])) for name in _BILINEAR)
+  if 'token_embed' in params or _at(params, ('scorer', 'encoder')) is not None:
+    return OrderedDict((name, _tensor(leaf))
+                       for name, leaf in _dotted_leaves(params))
   gam = _at(params, _GAM)
   if gam is not None:
     towers = [(_GAM + (name,), f'scorer.gam.{name}.') for name in sorted(gam)
@@ -150,6 +163,14 @@ def from_flax(variables: Mapping[str, Any],
           state[f'{_ATTENTION_PREFIX}attentions.{i}.{part}.{leaf}'] = \
               _tensor(mha[part][leaf])
   return state
+
+
+def _dotted_leaves(tree: Mapping[str, Any], prefix: str = ''):
+  for name in sorted(tree):
+    if isinstance(tree[name], Mapping):
+      yield from _dotted_leaves(tree[name], f'{prefix}{name}.')
+    else:
+      yield f'{prefix}{name}', tree[name]
 
 
 def _tower_state(tower, stats, prefix: str,
@@ -212,6 +233,9 @@ def to_flax(named: Mapping[str, torch.Tensor],
       continue
     if name in _BILINEAR:
       _put(tree, ('params', name), value)
+      continue
+    if _ENCODER.match(name):
+      _put(tree, ('params',) + tuple(name.split('.')), value)
       continue
     if name.startswith(_ATTENTION_PREFIX):
       _put(tree, ('params',) + _ATTENTION + _attention_path(

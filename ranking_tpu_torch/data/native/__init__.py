@@ -1,13 +1,14 @@
 """ctypes bindings of the native data library: the batch decoder
-(``decoder.cc``), the streaming loader (``loader.cc``) and the LIBSVM parser
-(``libsvm.cc``).
+(``decoder.cc``), the streaming loader (``loader.cc``), the LIBSVM parser
+(``libsvm.cc``) and CRC-32C (``crc32c.cc``, for checkpoint tensors).
 
-The port's copy of ``ranking_tpu/data/native``. The three sources link into
-one library, built with ``g++`` at first use into ``_build/`` (git-ignored)
-as ``libranking_data_<hash>.so``, the hash covering the sources and the
-flags: compiled to a private temp name, then published by an atomic rename,
-so that a concurrent process never loads half a file, and under a file
-lock, so that concurrent test workers share one build. A failed build or load raises
+The port's copy of ``ranking_tpu/data/native``, with ``crc32c`` added. The
+sources link into one library, built with ``g++`` at first use into
+``_build/`` (git-ignored) as ``libranking_data_<hash>.so``, the hash
+covering the sources and the flags: compiled to a private temp name, then
+published by an atomic rename, so that a concurrent process never loads
+half a file, and under a file lock, so that concurrent test workers share
+one build. A failed build or load raises
 ``NativeBuildError``; nothing falls back to the Python parsers.
 ``decode_supported`` and ``loader_supported`` are the side-effect-free
 checks of which specs the decoder and the loader take.
@@ -30,7 +31,8 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = tuple(os.path.join(_DIR, name)
-              for name in ('decoder.cc', 'loader.cc', 'libsvm.cc'))
+              for name in ('decoder.cc', 'loader.cc', 'libsvm.cc',
+                           'crc32c.cc'))
 BUILD_DIR = os.path.join(_DIR, '_build')
 _FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-pthread')
 
@@ -161,6 +163,15 @@ def _declare(lib: ctypes.CDLL) -> None:
       ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
   lib.rt_libsvm_free.restype = None
   lib.rt_libsvm_free.argtypes = [ctypes.c_void_p]
+  lib.rt_crc32c.restype = ctypes.c_uint32
+  lib.rt_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
+
+
+def crc32c(data) -> int:
+  """CRC-32C of a bytes-like object (``data.tfrecord.crc32c``'s value)."""
+  view = memoryview(data).cast('B')
+  buf = np.frombuffer(view, np.uint8) if view.nbytes else np.zeros(1, np.uint8)
+  return int(load().rt_crc32c(buf.ctypes.data, view.nbytes, 0))
 
 
 def load() -> ctypes.CDLL:

@@ -5,17 +5,21 @@ The port's copy of ``ranking_tpu/models/embeddings.py``: token-id features
 and pooled over the token axis; ids below 0 are padding, masked out of the
 pooling.
 
+``Embed`` is flax's ``nn.Embed``, the plain lookup with no pooling that the
+transformer encoder's tables use (``models/encoder.py``).
+
 The sparse train step (``train/steps.py`` ``make_sparse_train_step``) reads
-each encoder's rows from a gathered slab ``[K, dim]`` with batch-local slot
-ids instead of from its table. The JAX package redirects the lookup with
-flax's ``intercept_methods``; here ``read_from_slabs`` sets the slab on the
-encoder for the length of the step's forward. Outside it (eval, serving)
-an encoder reads its whole table.
+each encoder's rows, and an ``Embed``'s, from a gathered slab ``[K, dim]``
+with batch-local slot ids instead of from its table. The JAX package
+redirects the lookup with flax's ``intercept_methods``; here
+``read_from_slabs`` sets the slab on the module for the length of the
+step's forward. Outside it (eval, serving) a module reads its whole table.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, Mapping, Optional
 
 import torch
@@ -95,10 +99,63 @@ class HashEmbeddingEncoder(EmbeddingEncoder):
     return torch.where(ids >= 0, torch.remainder(ids, self.num_buckets), -1)
 
 
+# Tables of at most this many rows are read by selecting rows, not by a
+# gather: the card's embedding backward adds a row's long runs of equal ids
+# (a segment table's 2 rows under 8,192 tokens) in an order that varies
+# from run to run, where the selection's backward is a sum over the batch
+# in one fixed order.
+_SELECT_ROWS = 8
+
+
+def take(table: Tensor, ids: Tensor) -> Tensor:
+  """``jnp.take(table, ids, axis=0)`` in its default mode: ids in [-n, 0)
+  count from the end, ids outside [-n, n) read NaN rows (its fill)."""
+  n = table.shape[0]
+  ids = torch.where(ids < 0, ids + n, ids)
+  valid = (ids >= 0) & (ids < n)
+  if n <= _SELECT_ROWS:
+    rows = table[0].expand(tuple(ids.shape) + tuple(table.shape[1:]))
+    for j in range(1, n):
+      rows = torch.where((ids == j)[..., None], table[j], rows)
+  else:
+    rows = F.embedding(torch.clamp(ids, 0, n - 1), table)
+  return torch.where(valid[..., None], rows, math.nan)
+
+
+class Embed(nn.Module):
+  """flax's ``nn.Embed``: a table ``embedding [num_embeddings, features]``
+  read by integer ids ``[...]`` -> ``[..., features]`` in ``dtype`` (the
+  rows cast after the gather, which gives the bits of flax's cast table).
+  A table of one row broadcasts it whatever the ids, as flax's does. The
+  table starts normal(0, 1 / features), flax's default initializer."""
+
+  def __init__(self, num_embeddings: int, features: int,
+               generator: Optional[torch.Generator] = None,
+               dtype: torch.dtype = torch.float32):
+    super().__init__()
+    self.dtype = dtype
+    self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+    # The sparse step's row slab (read_from_slabs).
+    self.slab: Optional[Tensor] = None
+    with torch.no_grad():
+      nn.init.normal_(self.embedding, std=features ** -0.5,
+                      generator=torch.Generator() if generator is None
+                      else generator)
+
+  def forward(self, ids: Tensor) -> Tensor:
+    if self.slab is not None:
+      # Slot ids of the batch's unique rows, all in range.
+      return F.embedding(ids, self.slab).to(self.dtype)
+    if self.embedding.shape[0] == 1:
+      return self.embedding[0].to(self.dtype).expand(
+          tuple(ids.shape) + (self.embedding.shape[1],))
+    return take(self.embedding, ids).to(self.dtype)
+
+
 @contextlib.contextmanager
-def read_from_slabs(slabs: Mapping[EmbeddingEncoder, Tensor]) -> Iterator[None]:
-  """Inside, each encoder of ``slabs`` reads its rows from its slab, with
-  the slot ids it is given, instead of from its table."""
+def read_from_slabs(slabs: Mapping[nn.Module, Tensor]) -> Iterator[None]:
+  """Inside, each encoder or ``Embed`` of ``slabs`` reads its rows from its
+  slab, with the slot ids it is given, instead of from its table."""
   try:
     for encoder, slab in slabs.items():
       encoder.slab = slab

@@ -305,10 +305,11 @@ class SelfAttentionMask:
     return mask[:, None, None, :] & mask[:, None, :, None]
 
 
-class _DenseGeneral(nn.Module):
+class DenseGeneral(nn.Module):
   """A ``kernel`` and a ``bias`` in flax's ``DenseGeneral`` layout: the
   kernel's leading ``len(in_shape)`` axes are contracted with the input's
-  trailing ones."""
+  trailing ones, in the input's dtype. With one input and one output axis
+  it is flax's ``Dense`` (``kernel [in, out]``, lecun normal, zero bias)."""
 
   def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
                generator: torch.Generator):
@@ -345,38 +346,45 @@ class MultiHeadAttention(nn.Module):
                        f'num_heads {num_heads}')
     head_dim = qkv_features // num_heads
     self.dropout = dropout
-    self.query = _DenseGeneral((in_features,), (num_heads, head_dim),
-                               generator)
-    self.key = _DenseGeneral((in_features,), (num_heads, head_dim),
-                             generator)
-    self.value = _DenseGeneral((in_features,), (num_heads, head_dim),
-                               generator)
-    self.out = _DenseGeneral((num_heads, head_dim), (out_features,),
-                             generator)
+    self.query = DenseGeneral((in_features,), (num_heads, head_dim),
+                              generator)
+    self.key = DenseGeneral((in_features,), (num_heads, head_dim),
+                            generator)
+    self.value = DenseGeneral((in_features,), (num_heads, head_dim),
+                              generator)
+    self.out = DenseGeneral((num_heads, head_dim), (out_features,),
+                            generator)
 
   def forward(self, x: Tensor, mask: Tensor, training: bool = False,
-              generator: Optional[torch.Generator] = None) -> Tensor:
-    """``x`` ``[B, L, F]``, ``mask`` ``[B, 1, L, L]`` -> ``[B, L, F_out]``."""
+              generator: Optional[torch.Generator] = None,
+              weights_dropout: Optional[Tensor] = None) -> Tensor:
+    """``x`` ``[B, L, F]``, ``mask`` ``[B, 1, L, L]`` (or any shape that
+    broadcasts to ``[B, 1, L, L]``) -> ``[B, L, F_out]``. In training the
+    dropout factors of the weights are ``weights_dropout`` (``[1, 1, L,
+    L]``, drawn by the caller) where given, else drawn from
+    ``generator``."""
     q, k, v = self.query(x), self.key(x), self.value(x)   # [B, L, H, D]
     q = q / math.sqrt(q.shape[-1])
     logits = torch.einsum('bqhd,bkhd->bhqk', q, k)
     logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     weights = torch.softmax(logits, dim=-1)
     if training and self.dropout > 0.0:
-      if generator is None:
-        raise ValueError('training with dropout needs a torch.Generator')
-      weights = weights * dropout_mask(
-          (1, 1) + tuple(weights.shape[-2:]), self.dropout, generator,
-          x.device).to(weights.dtype)
+      if weights_dropout is None:
+        if generator is None:
+          raise ValueError('training with dropout needs a torch.Generator')
+        weights_dropout = dropout_mask(
+            (1, 1) + tuple(weights.shape[-2:]), self.dropout, generator,
+            x.device)
+      weights = weights * weights_dropout.to(weights.dtype)
     return self.out(torch.einsum('bhqk,bkhd->bqhd', weights, v))
 
 
 def layer_norm(x: Tensor, weight: Tensor, bias: Tensor,
                eps: float) -> Tensor:
-  """flax's ``LayerNorm`` over the last axis: float32 statistics, the fast
-  variance ``mean(x^2) - mean(x)^2`` clipped at 0, and
-  ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
-  x32 = x.to(torch.float32)
+  """flax's ``LayerNorm`` over the last axis: statistics in float32 (or in
+  ``x``'s wider type), the fast variance ``mean(x^2) - mean(x)^2`` clipped
+  at 0, and ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+  x32 = x.to(torch.promote_types(x.dtype, torch.float32))
   mean = x32.mean(-1, keepdim=True)
   var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
                     min=0.0)

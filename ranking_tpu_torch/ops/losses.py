@@ -96,10 +96,17 @@ def _softplus(x: Tensor) -> Tensor:
   return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _abs(x: Tensor) -> Tensor:
+  # jnp.abs's derivative at 0 is +1; torch.abs's is 0.
+  return torch.where(x >= 0, x, -x)
+
+
 def sigmoid_cross_entropy(labels: Tensor, logits: Tensor) -> Tensor:
-  """Numerically stable elementwise sigmoid CE with soft labels."""
+  """Numerically stable elementwise sigmoid CE with soft labels. At a logit
+  of exactly 0 its gradient is JAX's, sigmoid(0) - label - 0.5: ``_abs``
+  and ``_maximum0`` take jnp.abs's and jnp.maximum's derivatives there."""
   return (_maximum0(logits) - logits * labels
-          + torch.log1p(torch.exp(-torch.abs(logits))))
+          + torch.log1p(torch.exp(-_abs(logits))))
 
 
 def softmax_cross_entropy(label_dist: Tensor, logits: Tensor) -> Tensor:

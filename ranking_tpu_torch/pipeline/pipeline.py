@@ -24,6 +24,7 @@ task, and ``MultiTaskPipeline`` trains a dict of task losses (a
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import itertools
 import math
@@ -45,6 +46,7 @@ from ranking_tpu_torch.train import checkpoint
 from ranking_tpu_torch.train import sparse as sparse_lib
 from ranking_tpu_torch.train import state as state_lib
 from ranking_tpu_torch.train import steps
+from ranking_tpu_torch.utils import profiling
 from ranking_tpu_torch.utils import tensorboard
 from ranking_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -420,24 +422,24 @@ class SimplePipeline:
     while step < total_steps:
       epoch_index = step // hp.steps_per_epoch + 1
       epoch_end = min(total_steps, epoch_index * hp.steps_per_epoch)
-      profiler = None
+      traced = contextlib.nullcontext()
       if hp.profile_dir is not None and epoch_index == hp.profile_epoch:
-        profiler = _start_profiler(self.device)
+        traced = profiling.trace(hp.profile_dir, self.device,
+                                 f'trace_epoch{epoch_index}.json')
       losses = []  # on the device; read once an epoch
-      while step < epoch_end:
-        batch = next(feed)
-        if spe > 1:
-          state, metrics = self._multi_step(state, batch, state.generator)
-          chunk = batch.mask.shape[0]
-          lists_seen += chunk * batch.mask.shape[1]
-        else:
-          state, metrics = self._train_step(state, batch, state.generator)
-          chunk = 1
-          lists_seen += batch.batch_size
-        losses.append(metrics['loss'].reshape(-1))
-        step += chunk
-      if profiler is not None:
-        _stop_profiler(profiler, self.device, hp.profile_dir, epoch_index)
+      with traced:
+        while step < epoch_end:
+          batch = next(feed)
+          if spe > 1:
+            state, metrics = self._multi_step(state, batch, state.generator)
+            chunk = batch.mask.shape[0]
+            lists_seen += chunk * batch.mask.shape[1]
+          else:
+            state, metrics = self._train_step(state, batch, state.generator)
+            chunk = 1
+            lists_seen += batch.batch_size
+          losses.append(metrics['loss'].reshape(-1))
+          step += chunk
       epoch_metrics = self._run_eval(state)
       epoch_metrics['loss'] = torch.cat(losses).to(torch.float32).mean(
           ).item()
@@ -491,27 +493,6 @@ class SimplePipeline:
                                os.path.join(hp.model_dir, 'export', 'best'))
     self.final_state = state
     return history
-
-
-def _start_profiler(device: torch.device):
-  from torch.profiler import ProfilerActivity, profile
-  activities = [ProfilerActivity.CPU]
-  if device.type == 'cuda':
-    activities.append(ProfilerActivity.CUDA)
-  prof = profile(activities=activities)
-  prof.start()
-  return prof
-
-
-def _stop_profiler(prof, device: torch.device, directory: str,
-                   epoch: int) -> None:
-  """Ends the epoch's trace and writes it as a Chrome trace."""
-  if device.type == 'cuda':
-    torch.cuda.synchronize(device)
-  prof.stop()
-  os.makedirs(directory, exist_ok=True)
-  prof.export_chrome_trace(os.path.join(directory,
-                                        f'trace_epoch{epoch}.json'))
 
 
 class RankingPipeline(SimplePipeline):

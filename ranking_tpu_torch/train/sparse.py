@@ -133,8 +133,9 @@ def derive_embed_features(params: Mapping[str, Any],
                           ) -> Tuple[EmbedFeature, ...]:
   """EmbedFeatures for EmbeddingDNNScorer-style models: table parameters
   at ``.../embed_<feature>/embedding`` (``params`` keyed by path, e.g.
-  ``named_paths(model)``) whose ``<feature>`` is in the batch. (The JAX
-  package's branch for an encoder's token table waits for the encoder.)"""
+  ``named_paths(model)``) whose ``<feature>`` is in the batch; and, the
+  EncoderScorer (TFR-BERT) convention, an encoder's ``token_embed`` table
+  fed by the fused ``input_ids`` example feature."""
   out = []
   for s in params:
     if not re.search(table_pattern, s):
@@ -148,6 +149,10 @@ def derive_embed_features(params: Mapping[str, Any],
       elif feat in examples:
         out.append(EmbedFeature(param_path=s, feature=feat,
                                 source='examples'))
+      continue
+    if re.search(r'token_embed/[^/]+$', s) and 'input_ids' in examples:
+      out.append(EmbedFeature(param_path=s, feature='input_ids',
+                              source='examples'))
   return tuple(out)
 
 

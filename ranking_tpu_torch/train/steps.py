@@ -257,11 +257,11 @@ def make_sparse_train_step(
     encoders = {}
     for path, slab in slabs.items():
       encoder = state.model.get_submodule('.'.join(path.split('/')[:-1]))
-      if not isinstance(encoder, emb_lib.EmbeddingEncoder):
-        raise NotImplementedError(
+      if not isinstance(encoder, (emb_lib.EmbeddingEncoder, emb_lib.Embed)):
+        raise ValueError(
             f'sparse table {path!r} belongs to a {type(encoder).__name__}; '
-            'the sparse step redirects EmbeddingEncoder lookups only (other '
-            'tables are not ported yet)')
+            'the sparse step redirects the lookups of EmbeddingEncoder and '
+            'Embed modules only')
       encoders[encoder] = slab
 
     state.optimizer.zero_grad(set_to_none=True)

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and runs on the card unless told not to.
 
-It imports neither JAX, nor the JAX package, nor ``google.protobuf``: the
-card's machine has no protobuf, so the port reads and writes the wire
-format by hand (``data/proto.py``).
+It imports neither JAX, nor the JAX package, nor ``google.protobuf``, nor
+TensorFlow: the card's machine has neither protobuf nor TensorFlow, so the
+port reads and writes the wire format by hand (``data/proto.py``) and reads
+TF checkpoints with its own reader (``models/bert_ckpt.py``).
 """
 
 import ast
@@ -40,10 +41,12 @@ for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
              'ops.losses', 'ops.sorting', 'ops.loss_registry',
              'models.scorers', 'models.layers', 'models.groupwise',
              'utils.fns', 'utils.list_ops', 'train.sparse', 'train.state',
-             'convert', 'train.steps'):
+             'convert', 'train.steps', 'models.encoder', 'models.bert_ckpt',
+             'data.bert', 'utils.profiling'):
   assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                    'tensorflow')
              or m == 'ranking_tpu' or m.startswith('ranking_tpu.')
              or m == 'google.protobuf' or m.startswith('google.protobuf.'))
 print(bad)
@@ -80,7 +83,8 @@ def test_no_source_of_the_port_or_chip_smoke_imports_protobuf_or_jax():
   for path in paths:
     for name in _imported_modules(path):
       top = name.split('.')[0]
-      if (top in ('jax', 'jaxlib', 'flax', 'optax', 'ranking_tpu')
+      if (top in ('jax', 'jaxlib', 'flax', 'optax', 'ranking_tpu',
+                  'tensorflow')
           or name == 'google.protobuf'
           or name.startswith('google.protobuf.')):
         bad.append((os.path.relpath(path, repo), name))

@@ -21,10 +21,7 @@ of every score of a list leaves unchanged (softmax), a query token's row
 can have a gradient of zero in theory (every document of its list in the
 same ReLU region), which is rounding noise that Adam at eps 1e-8 turns
 into a step of up to the whole rate, in directions that differ between
-any two implementations; and at a logit of exactly 0 (a document whose
-ReLUs are all closed, under the initial zero output bias) the two packages'
-sigmoid cross-entropy gradients differ by 0.5 (jnp.abs's derivative at 0
-is 1, torch.abs's 0).
+any two implementations.
 """
 
 import json
