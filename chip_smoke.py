@@ -5,12 +5,14 @@ path (serialized protos through the native loader, and serving requests),
 its evaluation and serving artifact (the whole metric suite, the eval
 step as a CUDA graph, query-id and TREC-run evaluation, ``export_predictor``
 / ``load_predictor``), the whole loss zoo and multi-task training, the
-other scorers, and the transformer encoder family on one CUDA card.
+other scorers, the transformer encoder family, and distribution over rank
+processes that it starts, on one CUDA card.
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --anchor-seeds N
     python3 chip_smoke.py --scorers-only
     python3 chip_smoke.py --encoder-only
+    python3 chip_smoke.py --dist-only
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -276,6 +278,31 @@ Phases (any failure exits non-zero before the last line is printed):
    (f) ``warm_start_from`` of a second seed's flax-path parameters,
    overlaid bitwise, and ``strict=True`` refusing an unused entry.
 
+24. distribution (``parallel/``), each sub-phase from counts of 0: (a) a
+   world of one over NCCL in this process at the flagship: the distributed
+   step (every collective called) == phase 7's one-card step bitwise over
+   3 steps, 10 graph replays with the NCCL collectives captured == 10
+   eager steps bitwise, and the graphed eval step with its gather == the
+   eager one; then two rank processes (``_dist_rank``), which share the one
+   card over gloo (NCCL refuses two ranks on one card; where the machine
+   shows two cards, 24b also runs over NCCL across them): (b) ``data=2``
+   at the flagship, 64 + 64 rows, 3 steps (the third with unequal valid
+   counts on the ranks), each step held against the one-card step from
+   the rank's own state (``_hold_data_parallel``), and the eval of a
+   padded batch; (c) the sparse step's two 3M x 128 tables over
+   ``model=2``: untouched rows bitwise on each rank, touched rows and
+   moments within ``SPARSE_TOL`` of the one-card step, row 10 on each
+   rank's shard; (d) the list-sharded pairwise loss at B16 x L4096 against
+   rows 7-8 on one card (``LS_LOSS_TOL``, ``PAIR_TOL``), each rank's peak
+   memory beside the one card's; (e) phase 23's BERT-base profile over
+   ``model=2`` under ``ENCODER_TP_RULES``, one step at dropout 0.1 against
+   the one-card step (``ANCHOR_TOL`` of each gradient's largest entry);
+   (f) the ELWC CLI (``ranking_tpu_torch/examples/ranking_elwc_pipeline.py``)
+   on the two ranks with ``--mesh_model=2``: its checkpoint restores on one
+   card bitwise its export, which scores as the live model (``SPARSE_TOL``).
+   Times here are a correctness run's over gloo, not the card's
+   collectives'.
+
 With ``--anchor-seeds N`` the script builds the kernels (phases 1-2) and
 then only runs phase 21a's first-step checks of every key, each with the
 float64 steps of ``_hold_first_step``'s anchor whether or not it is needed,
@@ -287,12 +314,13 @@ check failed on any seed.
 With ``--scorers-only`` it builds the kernels and runs only phase 22 and
 its timings, and prints (and writes to ``chiprun_out/scorers.json``) one
 ``{"scorers": ...}`` line; with ``--encoder-only`` the same for phase 23
-(``chiprun_out/encoder.json``, one ``{"encoder": ...}`` line).
+(``chiprun_out/encoder.json``, one ``{"encoder": ...}`` line), and with
+``--dist-only`` for phase 24 (``chiprun_out/dist.json``, ``{"dist": ...}``).
 
 The log, its ``{"timings": ...}`` line and the ``{"kernels": [...]}`` line
 also go to ``chiprun_out/chip_smoke.log``. Prints a ``{"timings": ...}``
 line, the card line, a ``{"kernels": [...]}`` line (each kernel also with
-its launches in phases 17, 18, 21, 22 and 23, as its wrapper counts them
+its launches in phases 17, 18, 21, 22, 23 and 24, as its wrapper counts them
 and on the card in the profiled runs, and per replay of phase 16's
 graphs), and last ``{"ok": true, "device": {...}}``.
 """
@@ -6198,6 +6226,822 @@ def _encoder_phase():
               'encoder_sparse': out['sparse_graph']['launches_per_step']}
   return out, per_step
 
+# --- phase 24: distribution -----------------------------------------------
+
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# card): their collectives pass through host memory, so phase 24's times
+# are those of a correctness run, not of the card's collectives. Where the
+# machine shows two cards or more, 24b also runs over NCCL across two.
+DIST_WORLD = 2
+DIST_STEPS = 3                    # 24a, 24b: train steps held
+# 24b's third batch: the first half's lists hold 150 to 200 documents, the
+# second half's at most 40, so that the two ranks' valid counts differ.
+DIST_LONG, DIST_SHORT = 150, 40
+DIST_SPARSE_STEPS = 2             # 24c
+LS_B, LS_L = 16, 4096             # 24d: one [B, L, L] float32 is 1 GiB
+# 24d: the loss is a float32 sum of up to B * L^2 pair terms on each side,
+# summed in another order (a tree on the card); its relative error is at
+# most log2(B * L^2) roundings of 2^-24 a side: log2(B * L^2) * 2^-23.
+LS_LOSS_TOL = math.log2(LS_B * LS_L * LS_L) * 2.0 ** -23
+# 24f: the CLI at its own widths (examples/ranking_elwc_pipeline.py),
+# 8-token fields, lists of up to 50 documents, LazyAdam on the tables.
+DIST_CLI_TRAIN_LISTS, DIST_CLI_VALID_LISTS = 96, 24
+
+
+def _dist_root():
+  return os.path.join(os.path.dirname(os.path.abspath(__file__)), '.scratch',
+                      'chip_smoke_dist')
+
+
+def _dist_model():
+  """The flagship train model (phase 7's recipe) from a seed of its own, so
+  that every process builds the same weights."""
+  import torch
+  return _train_model(torch.Generator().manual_seed(SEED + 240))
+
+
+def _dist_batches():
+  """24a and 24b's DIST_STEPS global batches, flat-fed: two flagship
+  batches, then one whose halves (the two ranks' rows) hold unequal
+  counts of valid documents."""
+  import torch
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.data import dataset
+  gen = torch.Generator().manual_seed(SEED + 241)
+  out = [_make_batch(gen, B) for _ in range(DIST_STEPS - 1)]
+  long, short = (_make_batch(gen, B // 2, min_len=DIST_LONG),
+                 _make_batch(gen, B // 2, min_len=1))
+  keep = torch.arange(L) < DIST_SHORT
+  short_mask = short.mask & keep
+  out.append(batch_lib.RankingBatch(
+      context={}, examples={'features': torch.cat(
+          [long.examples['features'], short.examples['features']])},
+      labels=torch.cat([long.labels, torch.where(short_mask, short.labels,
+                                                 -1.0)]),
+      mask=torch.cat([long.mask, short_mask])))
+  return [dataset.flatten_examples(b) for b in out]
+
+
+def _dist_eval_batch():
+  """A ragged eval batch of B - 1 lists, padded to B by the caller."""
+  import torch
+  return _make_batch(torch.Generator().manual_seed(SEED + 242), B - 1)
+
+
+def _cpu_tree(tree):
+  """A copy of a (nested) state dict with every tensor on the CPU."""
+  import torch
+  if torch.is_tensor(tree):
+    return tree.detach().to('cpu', copy=True)
+  if isinstance(tree, dict):
+    return {k: _cpu_tree(v) for k, v in tree.items()}
+  if isinstance(tree, list):
+    return [_cpu_tree(v) for v in tree]
+  return tree
+
+
+def _dist_train(state, step, batches):
+  """Steps ``batches``; a record a step on the CPU: the model's and the
+  optimizer's state before it, its loss, its gradients, the model's state
+  after it, and what its backward started from (``_recording_tower``:
+  the ReLU gates of this process's rows and the gradient of its logits)."""
+  records = []
+  for batch in batches:
+    rec = {'before': _cpu_tree(state.model.state_dict()),
+           'optimizer': _cpu_tree(state.optimizer.state_dict())}
+    with _recording_tower(state.model) as seen:
+      state, metrics = step(state, batch)
+    rec.update(gates=[g.cpu() for g in seen['gates']],
+               dlogits=seen['dlogits'].cpu())
+    rec.update(loss=metrics['loss'].item(),
+               grads={k: p.grad.detach().cpu()
+                      for k, p in state.model.named_parameters()},
+               after=_cpu_tree(state.model.state_dict()))
+    records.append(rec)
+  return records
+
+
+def _dist_eval(model, mesh):
+  """Metric results of phase 4's suite and the validation loss over the
+  padded eval batch (24b holds them on the untrained model, the same
+  parameters on both sides)."""
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import steps
+  fns = _metric_fns()
+  step = steps.make_eval_step(fns, loss_fn=loss_registry.make_loss_fn(
+      'softmax_loss'), device='cuda', mesh=mesh)
+  batch = dataset.flatten_examples(_dist_eval_batch().pad_to(B))
+  states, _ = step(model, batch, steps.init_metric_states(
+      fns, with_loss=True, device='cuda'), num_valid_rows=B - 1)
+  return {k: v.item() for k, v in steps.metric_results(states, mesh).items()}
+
+
+def _world_of_one(root):
+  """24a: a world of one over NCCL at the flagship. The distributed code
+  path (a process group up, every collective called on it) against phase
+  7's one-card step, bitwise over DIST_STEPS steps; then K = 10 steps a
+  dispatch through the graph, whose capture holds the NCCL collectives,
+  against 10 eager steps on a copy, bitwise; and the graphed eval step,
+  whose capture holds the logits' gather, against the eager one. Returns (numbers, the
+  one-card eval of the untrained model, for 24b)."""
+  import copy
+  import torch
+  import torch.distributed as dist
+  from ranking_tpu_torch import parallel
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  batches = [b.to('cuda') for b in _dist_batches()]
+  model = _dist_model()
+  twin = copy.deepcopy(model)
+  one = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                     device='cuda')
+  one_eval = _dist_eval(one.model, None)
+  one_records = _dist_train(one, steps.make_train_step(loss_fn,
+                                                       device='cuda'),
+                            batches)
+  dist.init_process_group('nccl', init_method='file://' + os.path.join(
+      root, 'rendezvous_a'), world_size=1, rank=0,
+                          device_id=torch.device('cuda', 0))
+  try:
+    # make_mesh gives a world of one with no groups (its collectives are the
+    # identity); this mesh puts the data and model groups on the world's
+    # one rank, so that every collective of the step is called.
+    group = dist.new_group([0])
+    mesh = parallel.Mesh(1, 1, 0, group, group, group,
+                         backend=str(dist.get_backend()))
+    if not mesh.distributed or mesh.backend != 'nccl':
+      _fail(f'24a: the mesh {mesh} has no NCCL group')
+    _reset_all_launches()
+    state = state_lib.create_train_state(twin, state_lib.adam(1e-3),
+                                         device='cuda')
+    step = steps.make_train_step(loss_fn, device='cuda', mesh=mesh)
+    records = _dist_train(state, step, batches)
+    launches = steps.kernel_launch_counts()
+    for name in ('layer_forward', 'bwd_stats', 'bwd_mats'):
+      if launches[name] != {'layer_forward': 3, 'bwd_stats': 1,
+                            'bwd_mats': 2}[name] * DIST_STEPS:
+        _fail(f'24a: {name} launched {launches[name]} times in '
+              f'{DIST_STEPS} steps')
+    differ, worst = _state_diff(state, one)
+    losses = [r['loss'] for r in records]
+    one_losses = [r['loss'] for r in one_records]
+    if losses != one_losses or differ or any(
+        not torch.equal(r['grads'][k], o['grads'][k])
+        for r, o in zip(records, one_records) for k in o['grads']):
+      _fail(f'24a: the world of one over NCCL differs from the one-card '
+            f'step: losses {losses} vs {one_losses}, {len(differ)} state '
+            f'tensors differ ({differ[:4]}, worst {worst:.3g})')
+    # K steps a dispatch: a first dispatch warms up and captures, then 10
+    # replays against 10 eager steps on a copy.
+    host = _dist_batches()
+    stacked = [steps.stack_batches(
+        [host[(i + j) % DIST_STEPS] for i in range(KSTEPS)]).to('cuda')
+        for j in range(2)]
+    graphed = steps.make_multi_step(step, device='cuda')
+    eager = steps.make_multi_step(step, device='cuda', eager=True)
+    state, _ = graphed(state, stacked[0])
+    twin_state = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    state, graph_metrics = graphed(state, stacked[1])
+    twin_state, eager_metrics = eager(twin_state, stacked[1])
+    torch.cuda.synchronize()
+    differ, worst = _state_diff(state, twin_state)
+    if (graphed.captures != 1 or differ
+        or not torch.equal(graph_metrics['loss'], eager_metrics['loss'])):
+      _fail(f'24a: {KSTEPS} replays (captures {graphed.captures}) vs '
+            f'{KSTEPS} eager steps over NCCL: {len(differ)} tensors differ '
+            f'({differ[:4]}), worst {worst:.3g}')
+    captured = graphed.captured_launches
+    # The eval step as a CUDA graph with its NCCL gather captured: an eager
+    # call, a capture and a replay, equal bitwise.
+    fns = _metric_fns()
+    graphed_eval = steps.GraphedEvalStep(steps.make_eval_step(
+        fns, loss_fn=loss_fn, device='cuda', mesh=mesh), 'cuda')
+    eval_batch = dataset.flatten_examples(_dist_eval_batch().pad_to(B))
+    evals = []
+    for _ in range(3):
+      states, _ = graphed_eval(state.model, eval_batch,
+                               steps.init_metric_states(
+                                   fns, with_loss=True, device='cuda'),
+                               num_valid_rows=B - 1)
+      evals.append(steps.metric_results(states, mesh))
+    if (graphed_eval.captures != 1 or graphed_eval.replays != 2
+        or any(not torch.equal(e[k], evals[0][k]) for e in evals[1:]
+               for k in evals[0])):
+      _fail(f'24a: the graphed eval step over NCCL ({graphed_eval.captures} '
+            f'captures, {graphed_eval.replays} replays) != the eager step: '
+            f'{evals}')
+  finally:
+    dist.destroy_process_group()
+  _log(f'24a: a world of one over NCCL: {DIST_STEPS} steps of the '
+       f'distributed code path == the one-card step bitwise (losses '
+       f'{[round(v, 6) for v in losses]}); {KSTEPS} replays of the graph '
+       f'with its captured NCCL collectives == {KSTEPS} eager steps '
+       f'bitwise; launches recorded at capture {captured}; the graphed '
+       f'eval step with its NCCL gather == the eager one bitwise')
+  numbers = {'launches': {k: v for k, v in launches.items() if v},
+             'captured_launches': captured, 'replays': graphed.replays}
+  return numbers, one_eval
+
+
+def _dist_sparse_model(mesh=None):
+  """Phase 13's sparse model from a seed of its own; with ``mesh`` its
+  tables are row-sharded (``ShardedEmbeddingEncoder``)."""
+  import torch
+  from ranking_tpu_torch.models import scorers
+  return scorers.RankingModel(scorers.EmbeddingDNNScorer(
+      SPARSE_HIDDEN, vocab_sizes={'query_tokens': SPARSE_VOCAB,
+                                  'document_tokens': SPARSE_VOCAB},
+      embedding_dim=SPARSE_DIM, dropout=0.0, use_batch_norm=False,
+      generator=torch.Generator().manual_seed(SEED + 243), mesh=mesh))
+
+
+def _dist_sparse_run(mesh=None):
+  """DIST_SPARSE_STEPS sparse steps of recipe A (LazyAdam(1e-3), adam
+  (1e-3)) on phase 13's batches from a seed of its own. Returns (losses,
+  state, the tables before the first step, the ids the batches touch)."""
+  import torch
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import sparse
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  gen = torch.Generator().manual_seed(SEED + 244)
+  batches = [_sparse_batch(gen) for _ in range(DIST_SPARSE_STEPS)]
+  state = state_lib.create_train_state(
+      _dist_sparse_model(mesh), state_lib.adam(1e-3), device='cuda',
+      sparse_tx=sparse.LazyAdam(1e-3))
+  tables = sparse.partition(sparse.named_paths(state.model),
+                            state.sparse_tx)[1]
+  before = {p: t.detach().clone() for p, t in tables.items()}
+  efs = sparse.derive_embed_features(
+      sparse.named_paths(state.model), batches[0].context,
+      steps.restore_flat_examples(batches[0]).examples)
+  step = steps.make_sparse_train_step(
+      loss_registry.make_loss_fn('softmax_loss'), efs, device='cuda',
+      mesh=mesh)
+  losses = []
+  for batch in batches:
+    state, metrics = step(state, batch)
+    losses.append(metrics['loss'].item())
+  ids = {}
+  for ef in efs:
+    src = 'context' if ef.source == 'context' else 'examples'
+    flat = torch.cat([getattr(b, src)[ef.feature].reshape(-1)
+                      for b in batches])
+    ids[ef.param_path] = torch.unique(flat[flat >= 0]).long()
+  return losses, state, before, ids
+
+
+def _dist_sparse_rank(mesh):
+  """24c on one rank: its shard's untouched rows keep their bits; its
+  touched rows (global ids), their values and moments go to the host."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import rows
+  losses, state, before, ids = _dist_sparse_run(mesh)
+  out = {'losses': losses, 'rows': {}}
+  if rows.scatter_rows_multi.launches != 2 * DIST_SPARSE_STEPS:
+    _fail(f'24c: row 10 launched {rows.scatter_rows_multi.launches} times '
+          f'on rank {mesh.rank}, not once a table and step')
+  for path, old in before.items():
+    table = dict(state.model.named_parameters())[path.replace('/', '.')]
+    moments = state.sparse_opt_state[path]
+    n = table.shape[0]
+    lo = mesh.model_index * n
+    mine = ids[path][(ids[path] >= lo) & (ids[path] < lo + n)] - lo
+    untouched = torch.ones(n, dtype=torch.bool, device='cuda')
+    untouched[mine.to('cuda')] = False
+    if (not torch.equal(table.detach()[untouched], old[untouched])
+        or moments['m'][untouched].any() or moments['v'][untouched].any()):
+      _fail(f'24c: rank {mesh.rank}: untouched rows of {path} moved')
+    sel = mine.to('cuda')
+    out['rows'][path] = {
+        'ids': (mine + lo), 'table': table.detach()[sel].cpu(),
+        'm': moments['m'][sel].cpu(), 'v': moments['v'][sel].cpu(),
+        'local_rows': n}
+  return out
+
+
+def _ls_inputs():
+  """24d's labels and logits ``[LS_B, LS_L]``: graded labels on ragged
+  lists, and logits that no two items of a list share (a tie's gradient
+  is the one place where the jnp formula, -1, and the kernel, -0.5,
+  differ)."""
+  import torch
+  gen = torch.Generator().manual_seed(SEED + 245)
+  labels, _ = _graded_labels(gen, LS_B, LS_L, LS_L // 2)
+  logits = torch.stack([torch.randperm(LS_L, generator=gen)
+                        for _ in range(LS_B)]).float()
+  return labels, (logits - LS_L / 2) / 512.0
+
+
+def _dist_list_rank(mesh):
+  """24d on one rank: its [B, L/2] block of the list-sharded loss, its
+  gradient and the rank's peak memory over what was resident before."""
+  import torch
+  from ranking_tpu_torch import parallel
+  labels, logits = _ls_inputs()
+  n = LS_L // mesh.model
+  cols = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  resident = torch.cuda.memory_allocated()
+  x = logits[:, cols].to('cuda').requires_grad_()
+  loss = parallel.sharded_pairwise_loss(labels[:, cols].to('cuda'), x, mesh,
+                                        loss_kind='logistic')
+  loss.backward()
+  torch.cuda.synchronize()
+  return {'loss': loss.item(), 'grad': x.grad.cpu(), 'col0': cols.start,
+          'peak_mib': (torch.cuda.max_memory_allocated() - resident)
+                      / 2 ** 20}
+
+
+def _dist_encoder_step(mesh=None):
+  """One train step of phase 23's profile at dropout 0.1 with a CUDA
+  generator from a fixed seed; under ``mesh`` tensor-parallel
+  (``ENCODER_TP_RULES``). Returns (loss, the whole gradients on the
+  CPU, the names that are model-sharded)."""
+  import numpy as np
+  import torch
+  from ranking_tpu_torch import parallel
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.parallel import comm
+  from ranking_tpu_torch.parallel import mesh as mesh_lib
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  model = _encoder_model(torch.Generator().manual_seed(SEED + 246))
+  if mesh is not None:
+    parallel.shard_module(model, mesh, parallel.ENCODER_TP_RULES)
+  state = state_lib.create_train_state(model, state_lib.adam(ENC_LR),
+                                       device='cuda')
+  batch = _encoder_batches(np.random.RandomState(SEED + 247), 1)[0]
+  step = steps.make_train_step(loss_registry.make_loss_fn('softmax_loss'),
+                               device='cuda', mesh=mesh)
+  rng = torch.Generator(device='cuda').manual_seed(SEED + 248)
+  state, metrics = step(state, batch, rng)
+  dims = {} if mesh is None else mesh_lib.sharded_dims(state.model)
+  grads = {}
+  for k, p in state.model.named_parameters():
+    g = p.grad
+    if k in dims:
+      g = comm.all_gather(g, mesh.model_group, dims[k])
+    grads[k] = g.cpu()
+  return metrics['loss'].item(), grads, sorted(dims)
+
+
+def _dist_cli_args(root):
+  return [f'--train_pattern={os.path.join(root, "cli_train.tfrecord")}',
+          f'--valid_pattern={os.path.join(root, "cli_valid.tfrecord")}',
+          f'--model_dir={os.path.join(root, "cli_run")}',
+          f'--query_tokens={SPARSE_T}', f'--document_tokens={SPARSE_T}',
+          f'--list_size={SPARSE_L}', '--num_epochs=2', '--steps_per_epoch=5',
+          '--validation_steps=3', '--optimizer=lazy_adam', '--device=cuda',
+          '--backend=gloo', f'--mesh_model={DIST_WORLD}']
+
+
+def _dist_cli_rank(root):
+  """24f on one rank: the CLI, then the live model's scores of the first
+  validation batch."""
+  import torch
+  from ranking_tpu_torch.examples import ranking_elwc_pipeline as cli
+  pipe, history = cli.main(_dist_cli_args(root))
+  batch = next(iter(pipe.dataset_builder.valid_batches())).to('cuda')
+  model = pipe.final_state.model.eval()
+  with torch.no_grad():
+    logits = model(batch.context, batch.examples, batch.mask)
+  return {'history': history, 'logits': logits.cpu(),
+          'batch': batch.to('cpu'),
+          'mesh': (pipe.mesh.data, pipe.mesh.model)}
+
+
+def _dist_rank(rank, world, root):
+  """One rank of 24b-f: gloo over CUDA tensors on the one card (NCCL where
+  ``DIST_NCCL`` is set in the environment, one card a rank); each
+  sub-phase from wrapper counts of 0; results, or the failure, to
+  ``<root>/rank<r>.pt``."""
+  import traceback
+  import torch
+  import torch.distributed as dist
+  os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                    WORLD_SIZE=str(world))
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  from ranking_tpu_torch import parallel
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  nccl = bool(os.environ.get('DIST_NCCL'))
+  parallel.init_distributed(
+      'cuda', init_method='file://' + os.path.join(
+          root, 'rendezvous_nccl' if nccl else 'rendezvous'),
+      world_size=world, rank=rank, backend='nccl' if nccl else 'gloo')
+  out = {}
+  try:
+    for name in ('b', 'c', 'd', 'e', 'f'):
+      if nccl and name != 'b':
+        continue
+      _reset_all_launches()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      if name == 'b':
+        mesh = parallel.make_mesh(data=world)
+        state = state_lib.create_train_state(_dist_model(),
+                                             state_lib.adam(1e-3),
+                                             device='cuda')
+        step = steps.make_train_step(
+            loss_registry.make_loss_fn('softmax_loss'), device='cuda',
+            mesh=mesh)
+        evaluated = _dist_eval(state.model, mesh)
+        res = {'records': _dist_train(state, step, [
+            b.to('cuda') for b in _dist_batches()]), 'eval': evaluated}
+      elif name == 'c':
+        res = _dist_sparse_rank(parallel.make_mesh(data=1, model=world))
+      elif name == 'd':
+        res = _dist_list_rank(parallel.make_mesh(data=1, model=world))
+      elif name == 'e':
+        mesh = parallel.make_mesh(data=1, model=world)
+        loss, grads, sharded = _dist_encoder_step(mesh)
+        res = {'loss': loss, 'sharded': sharded,
+               'grads': grads if rank == 0 else None}
+      else:
+        res = _dist_cli_rank(root)
+      torch.cuda.synchronize()
+      res['s'] = time.perf_counter() - t0
+      res['launches'] = steps.kernel_launch_counts()
+      out[name] = res
+  except (Exception, SystemExit):  # reported by the parent, which fails
+    # the phase
+    out['error'] = traceback.format_exc()
+  finally:
+    torch.save(out, os.path.join(root, f'rank{rank}{"_nccl" * nccl}.pt'))
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(root, nccl=False):
+  """DIST_WORLD processes of ``_dist_rank``; each rank's results."""
+  import torch
+  import torch.multiprocessing as mp
+  env = dict(os.environ)
+  try:
+    if nccl:
+      os.environ['DIST_NCCL'] = '1'
+    mp.start_processes(_dist_rank, args=(DIST_WORLD, root),
+                       nprocs=DIST_WORLD, join=True, start_method='spawn')
+  finally:
+    os.environ.clear()
+    os.environ.update(env)
+  out = [torch.load(os.path.join(root, f'rank{r}{"_nccl" * nccl}.pt'),
+                    weights_only=False) for r in range(DIST_WORLD)]
+  for r, res in enumerate(out):
+    if 'error' in res:
+      _fail(f'24: rank {r}{" (NCCL)" * nccl} failed:\n{res["error"]}')
+  return out
+
+
+def _hold_data_parallel(what, ranks, one_eval):
+  """24b: each of a rank's DIST_STEPS steps against the one-card step from
+  the rank's own state before it (model and optimizer), on the same
+  global batch. Two runs of Adam from one start drift apart wherever a
+  gradient lies within rounding of 0, whose first moves are a whole rate
+  in the direction of its rounding noise; so each step is held from the
+  state the rank had. The loss to 1e-5 and the running statistics after
+  the step to 1e-5 of their largest value (phase 7's first-step bounds);
+  the gradients as phase 7 holds the first step against the plain
+  versions (``_grad_errors``: OP_TOL_NORM in the norm, OP_TOL_MAX at the
+  largest entry; the biases in front of a BN and the output bias zero in
+  theory, to their rounding bound N_ROWS * 2^-23 of the largest logit
+  gradient): the moments are sums over the global batch in another
+  order, so a ReLU gate within rounding of 0 may open on one side only.
+  A step beyond OP_TOL_NORM is settled as ``_hold_first_step`` settles
+  one: the ranks' gradients and the one card's must each be within
+  ANCHOR_TOL (in the norm and at the largest entry) of the float64 step
+  of their own ReLU gates and loss gradient (``_first_step_f64``; the
+  ranks' gates and logit gradients gathered over their rows).
+  The parameters after the step: Adam's first moves are a whole rate in
+  the direction of each gradient entry, so an entry within rounding of 0
+  moves either way; so the rank's parameters are held bitwise to the
+  one-card optimizer applied to the rank's own gradients from the same
+  state (the gradients themselves held above). Both ranks' records must
+  be equal bitwise. The eval on the untrained model to 1e-6 (phase
+  5's)."""
+  import torch
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  loss_fn = loss_registry.make_loss_fn('softmax_loss')
+  step = steps.make_train_step(loss_fn, device='cuda')
+  batches = [b.to('cuda') for b in _dist_batches()]
+  zero = _zero_in_theory(_dist_model(), True)
+  zero_tol = _zero_tol(_dist_model(), loss_fn, _dist_batches()[0])
+  worst = {'loss': 0.0, 'grad_norm': 0.0, 'grad_max': 0.0, 'stats': 0.0,
+           'eval': 0.0}
+  records = ranks[0]['records']
+  for r, res in enumerate(ranks[1:], start=1):
+    for rec, other in zip(records, res['records']):
+      if rec['loss'] != other['loss'] or any(
+          not torch.equal(v, other['after'][k])
+          for k, v in rec['after'].items()):
+        _fail(f'{what}: ranks 0 and {r} hold different states')
+  def restored(rec):
+    model = _dist_model()
+    model.load_state_dict(rec['before'])
+    state = state_lib.create_train_state(model, state_lib.adam(1e-3),
+                                         device='cuda')
+    state.optimizer.load_state_dict(rec['optimizer'])
+    return state
+
+  for i, rec in enumerate(records):
+    # The optimizer on the rank's own gradients: bitwise its parameters.
+    state = restored(rec)
+    for k, p in state.model.named_parameters():
+      p.grad = rec['grads'][k].to('cuda')
+    state.apply_gradients()
+    for k, p in state.model.named_parameters():
+      if not torch.equal(p.detach().cpu(), rec['after'][k]):
+        _fail(f'{what}: step {i}: {k} is not the optimizer\'s update of '
+              f'the rank\'s gradient')
+    state = restored(rec)
+    with _recording_tower(state.model) as one_record:
+      state, metrics = step(state, batches[i])
+    want = metrics['loss'].item()
+    err = abs(rec['loss'] - want) / abs(want)
+    worst['loss'] = max(worst['loss'], err)
+    if err > 1e-5:
+      _fail(f'{what}: step {i}: loss {rec["loss"]} vs one card {want}')
+    one_grads = {k: p.grad for k, p in state.model.named_parameters()}
+    rank_grads = {k: v.to('cuda') for k, v in rec['grads'].items()}
+    norm, name, top, top_name = _grad_errors(rank_grads, one_grads, zero,
+                                             zero_tol)
+    worst['grad_norm'] = max(worst['grad_norm'], norm)
+    worst['grad_max'] = max(worst['grad_max'], top)
+    if top > OP_TOL_MAX:
+      _fail(f'{what}: step {i}: gradients differ from the one card by '
+            f'{top:.3g} at most ({top_name}; {norm:.3g} in norm)')
+    if norm > OP_TOL_NORM:
+      before = _dist_model()
+      before.load_state_dict(rec['before'])
+      rank_record = {
+          'gates': [torch.cat([r['records'][i]['gates'][l] for r in ranks])
+                    .to('cuda') for l in range(len(rec['gates']))],
+          'dlogits': torch.cat([r['records'][i]['dlogits'] for r in ranks]
+                               ).to('cuda')}
+      flips = sum(int((g != o).sum().item()) for g, o in zip(
+          rank_record['gates'], one_record['gates']))
+      for side, grads, record in (('ranks\'', rank_grads, rank_record),
+                                  ('one card\'s', one_grads, one_record)):
+        e = _grad_errors(grads, _first_step_f64(before, batches[i], record),
+                         zero, zero_tol)
+        worst.setdefault('anchored', []).append(
+            {'step': i, 'side': side, 'norm': e[0], 'max': e[2],
+             'gates_differ': flips})
+        if e[0] > ANCHOR_TOL or e[2] > ANCHOR_TOL:
+          _fail(f'{what}: step {i}: gradients differ from the one card by '
+                f'{norm:.3g} in norm ({name}); the {side} step is off from '
+                f'the float64 step of its own ReLU gates and loss gradient '
+                f'by {e[0]:.3g} in norm ({e[1]}), {e[2]:.3g} at most '
+                f'({e[3]}); the two forwards differ in {flips} gates')
+    after = _cpu_tree(state.model.state_dict())
+    for k, want in after.items():
+      got = rec['after'][k]
+      if not want.is_floating_point():
+        if not torch.equal(got, want):
+          _fail(f'{what}: step {i}: {k} {got} vs {want}')
+      elif 'running' in k:
+        err = _rel_err(got, want)[1]
+        worst['stats'] = max(worst['stats'], err)
+        if err > 1e-5:
+          _fail(f'{what}: step {i}: {k} off by {err:.3g} of its largest')
+  for r, res in enumerate(ranks):
+    for k, want in one_eval.items():
+      err = abs(res['eval'][k] - want)
+      worst['eval'] = max(worst['eval'], err)
+      if err > 1e-6:
+        _fail(f'{what}: rank {r}: eval {k} {res["eval"][k]} vs {want}')
+    launches = res['launches']
+    if (launches['layer_forward'] != 3 * DIST_STEPS
+        or launches['bwd_stats'] != DIST_STEPS
+        or launches['bwd_mats'] != 2 * DIST_STEPS
+        or launches['sorted_values_and_ranks'] == 0):
+      _fail(f'{what}: rank {r} launches {launches}')
+  return worst
+
+
+def _dist_phase():
+  """Phase 24: distribution. Returns (numbers, each rank's wrapper
+  launches by sub-phase)."""
+  import shutil
+  import torch
+  from ranking_tpu_torch.data import tfrecord
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.ops.cuda import pairwise
+  from ranking_tpu_torch.train import checkpoint
+  from ranking_tpu_torch.train import sparse
+  from ranking_tpu_torch.train import state as state_lib
+  root = _dist_root()
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  out = {'backend': 'gloo over CUDA tensors, two ranks on one card',
+         'card': _card_line()}
+  try:
+    t0 = time.perf_counter()
+    out['a'], one_eval = _world_of_one(root)
+    out['a']['s'] = time.perf_counter() - t0
+    tfrecord.write_records(os.path.join(root, 'cli_train.tfrecord'),
+                           _token_records(SEED + 249, DIST_CLI_TRAIN_LISTS))
+    tfrecord.write_records(os.path.join(root, 'cli_valid.tfrecord'),
+                           _token_records(SEED + 250, DIST_CLI_VALID_LISTS))
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(root)
+    out['spawn_s'] = time.perf_counter() - t0
+    launches = {name: [r[name]['launches'] for r in ranks]
+                for name in 'bcdef'}
+    launches['a'] = out['a']['launches']
+    out['s'] = {name: [r[name]['s'] for r in ranks] for name in 'bcdef'}
+
+    # 24b: data=2 at the flagship, 64 + 64 rows.
+    def check_b():
+      out['b'] = _hold_data_parallel('24b', [r['b'] for r in ranks], one_eval)
+      if torch.cuda.device_count() >= DIST_WORLD:
+        nccl = _spawn_ranks(root, nccl=True)
+        out['b_nccl'] = _hold_data_parallel('24b (NCCL)',
+                                            [r['b'] for r in nccl], one_eval)
+      else:
+        out['b_nccl'] = 'not run: one card'
+      _log(f'24b: data={DIST_WORLD} at the flagship over gloo: '
+           f'{DIST_STEPS} steps (the third with {DIST_LONG}-200 and at most '
+           f'{DIST_SHORT} valid documents a list on the two ranks) == the '
+           f'one-card step from each step\'s state: {out["b"]}; NCCL across cards: '
+           f'{out["b_nccl"] if isinstance(out["b_nccl"], str) else "held"}; '
+           f'launches per rank {launches["b"]}')
+
+    # 24c: the sparse step's tables over model=2 against the one card.
+    def check_c():
+      one_losses, one_state, _, _ = _dist_sparse_run()
+      worst = 0.0
+      for r, res in enumerate(ranks):
+        res = res['c']
+        for got, want in zip(res['losses'], one_losses):
+          if abs(got - want) > SPARSE_TOL * abs(want):
+            _fail(f'24c: rank {r} loss {got} vs one card {want}')
+        for path, rows_ in res['rows'].items():
+          if rows_['local_rows'] != SPARSE_VOCAB // DIST_WORLD:
+            _fail(f'24c: rank {r} holds {rows_["local_rows"]} rows of {path}')
+          ids = rows_['ids'].to('cuda')
+          table = dict(one_state.model.named_parameters())[
+              path.replace('/', '.')].detach()
+          moments = one_state.sparse_opt_state[path]
+          for name, want in (('table', table[ids]), ('m', moments['m'][ids]),
+                             ('v', moments['v'][ids])):
+            err = _rel_err(rows_[name].to('cuda'), want)[1]
+            worst = max(worst, err)
+            if err > SPARSE_TOL:
+              _fail(f'24c: rank {r} {path} {name} of touched rows off by '
+                    f'{err:.3g} of the largest value')
+      touched = {p: sum(r['c']['rows'][p]['ids'].numel() for r in ranks)
+                 for p in ranks[0]['c']['rows']}
+      del one_state
+      torch.cuda.empty_cache()
+      out['c'] = {'worst_touched': worst, 'touched_rows': touched,
+                  'row10_launches_per_rank': [
+                      r['c']['launches']['scatter_rows_multi'] for r in ranks]}
+      _log(f'24c: tables of {SPARSE_VOCAB} x {SPARSE_DIM} over model='
+           f'{DIST_WORLD}: {DIST_SPARSE_STEPS} sparse steps == the one-card '
+           f'steps (untouched rows bitwise on each rank, touched rows of '
+           f'{touched} within {worst:.3g} of the largest value); row 10 on '
+           f'each rank\'s shard {out["c"]["row10_launches_per_rank"]}')
+
+    # 24d: the list-sharded pairwise loss against rows 7-8 on one card.
+    def check_d():
+      labels, logits = _ls_inputs()
+      torch.cuda.synchronize()
+      torch.cuda.empty_cache()
+      torch.cuda.reset_peak_memory_stats()
+      resident = torch.cuda.memory_allocated()
+      before = [fn.launches for fn in pairwise.KERNEL_WRAPPERS]
+      x = logits.to('cuda').requires_grad_()
+      loss = loss_registry.make_loss_fn('pairwise_logistic_loss')(
+          labels.to('cuda'), x)
+      loss.backward()
+      torch.cuda.synchronize()
+      one_peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+      kernel_calls = [fn.launches - b for fn, b in zip(
+          pairwise.KERNEL_WRAPPERS, before)]
+      if kernel_calls != [1, 1]:
+        _fail(f'24d: the one-card loss launched rows 7-8 {kernel_calls}')
+      grad = torch.zeros_like(logits)
+      loss_err = 0.0
+      for r in ranks:
+        res = r['d']
+        loss_err = max(loss_err, abs(res['loss'] - loss.item())
+                       / abs(loss.item()))
+        grad[:, res['col0']:res['col0'] + res['grad'].shape[1]] = res['grad']
+      grad_err = _rel_err(grad, x.grad.cpu())[1]
+      if loss_err > LS_LOSS_TOL or grad_err > PAIR_TOL:
+        _fail(f'24d: list-sharded loss off by {loss_err:.3g} (allowed '
+              f'{LS_LOSS_TOL:.3g}), gradient by {grad_err:.3g} of the largest '
+              f'(allowed {PAIR_TOL})')
+      out['d'] = {'loss_err': loss_err, 'grad_err': grad_err,
+                  'one_card_peak_mib': one_peak,
+                  'rank_peak_mib': [r['d']['peak_mib'] for r in ranks]}
+      del x, loss, grad
+      _log(f'24d: the list-sharded pairwise loss at B{LS_B} x L{LS_L} over '
+           f'model={DIST_WORLD} == rows 7-8 on one card (loss within '
+           f'{loss_err:.3g}, gradient {grad_err:.3g} of the largest); peak '
+           f'memory over the resident state a rank '
+           f'{out["d"]["rank_peak_mib"]} MiB, one card (rows 7-8, no '
+           f'[B, L, L] tensor) {one_peak:.1f} MiB')
+
+    # 24e: the BERT-base profile over model=2 against the one card.
+    def check_e():
+      one_loss, one_grads, _ = _dist_encoder_step()
+      sharded = ranks[0]['e']['sharded']
+      scale = max(g.abs().max().item() for g in one_grads.values())
+      worst = {'loss': 0.0, 'grad': 0.0}
+      for r in ranks:
+        err = abs(r['e']['loss'] - one_loss) / abs(one_loss)
+        worst['loss'] = max(worst['loss'], err)
+        if err > 1e-5:
+          _fail(f'24e: TP loss {r["e"]["loss"]} vs one card {one_loss}')
+      for k, want in one_grads.items():
+        got = ranks[0]['e']['grads'][k]
+        top = (scale if _zero_in_theory_encoder(k)
+               else max(want.abs().max().item(), 1e-30))
+        err = (got - want).abs().max().item() / top
+        worst['grad'] = max(worst['grad'], err)
+        if err > ANCHOR_TOL:
+          _fail(f'24e: TP gradient {k} off by {err:.3g} of its largest entry '
+                f'(allowed ANCHOR_TOL {ANCHOR_TOL})')
+      if not any('query.kernel' in n for n in sharded):
+        _fail(f'24e: no projection was split over the model axis: {sharded}')
+      out['e'] = {**worst, 'sharded_params': len(sharded)}
+      _log(f'24e: BERT-base profile over model={DIST_WORLD} '
+           f'({len(sharded)} parameters split): one step == the one-card step '
+           f'(loss within {worst["loss"]:.3g}, gradients within '
+           f'{worst["grad"]:.3g} of their largest entries)')
+      del one_grads
+
+    # 24f: the CLI under two ranks with --mesh_model=2.
+    def check_f():
+      from ranking_tpu_torch.models import scorers
+      run_dir = os.path.join(root, 'cli_run')
+      res = [r['f'] for r in ranks]
+      if [r['mesh'] for r in res] != [(1, DIST_WORLD)] * DIST_WORLD:
+        _fail(f'24f: meshes {[r["mesh"] for r in res]}')
+      export = checkpoint.load_params(os.path.join(run_dir, 'export',
+                                                   'latest'))
+      model = scorers.RankingModel(scorers.EmbeddingDNNScorer(
+          (64, 32, 16), vocab_sizes={'query_tokens': 10000,
+                                     'document_tokens': 10000},
+          embedding_dim=20, dropout=0.5))
+      one = state_lib.create_train_state(
+          model, state_lib.adam(0.05), device='cuda',
+          sparse_tx=sparse.LazyAdam(0.05))
+      checkpoint.CheckpointManager(os.path.join(run_dir, 'checkpoints')
+                                   ).restore(one)
+      if one.step != 10 or any(not torch.equal(v.cpu(), export[k])
+                               for k, v in one.model.state_dict().items()):
+        _fail(f'24f: the checkpoint of step {one.step} does not restore the '
+              'export on one card')
+      one.model.eval()
+      batch = res[0]['batch'].to('cuda')
+      with torch.no_grad():
+        served = one.model(batch.context, batch.examples, batch.mask).cpu()
+      cli_err = max(_rel_err(served, r['logits'])[1] for r in res)
+      if cli_err > SPARSE_TOL:
+        _fail(f'24f: the export scores {cli_err:.3g} of the largest score '
+              'away from the live model')
+      with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
+        epochs = len(f.read().splitlines())
+      if epochs != 2:
+        _fail(f'24f: {epochs} lines in metrics.jsonl, one writer expected')
+      for r, l in enumerate(launches['f']):
+        if not (l['sorted_values_and_ranks'] and l['scatter_rows_multi']):
+          _fail(f'24f: rank {r} launches {l}')
+      out['f'] = {'export_vs_live': cli_err,
+                  'history': {k: v for k, v in res[0]['history'].items()}}
+      _log(f'24f: the ELWC CLI on {DIST_WORLD} ranks with --mesh_model='
+           f'{DIST_WORLD}: {res[0]["history"]}; its checkpoint restores on one '
+           f'card bitwise its export, which scores within {cli_err:.3g} of the '
+           f'largest score of the live model')
+
+    # Every sub-phase is held, and then every failure reported.
+    failures = []
+    for check in (check_b, check_c, check_d, check_e, check_f):
+      try:
+        check()
+      except SystemExit as e:
+        failures.append(str(e))
+    if failures:
+      _fail(' | '.join(failures))
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  return out, launches
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -6271,6 +7115,15 @@ def main():
     line = json.dumps({'encoder': numbers, 'card': card})
     os.makedirs('chiprun_out', exist_ok=True)
     with open(os.path.join('chiprun_out', 'encoder.json'), 'w') as f:
+      f.write(line + '\n')
+    print(line)
+    return 0
+
+  if '--dist-only' in sys.argv[1:]:
+    numbers, launches = _dist_phase()
+    line = json.dumps({'dist': numbers, 'launches': launches, 'card': card})
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'dist.json'), 'w') as f:
       f.write(line + '\n')
     print(line)
     return 0
@@ -6549,6 +7402,14 @@ def main():
   for name in ('sorted_values_and_ranks', 'scatter_rows_multi'):
     if encoder_launches[name] == 0:
       _fail(f'the encoder phase never launched {name}')
+  # Phase 24: distribution; each sub-phase and rank counts from 0.
+  dist_numbers, dist_launches = _dist_phase()
+  for name in ('layer_forward', 'bwd_stats', 'bwd_mats',
+               'sorted_values_and_ranks'):
+    if not all(r[name] for r in dist_launches['b']):
+      _fail(f'phase 24b: a rank never launched {name}')
+  if not all(r['scatter_rows_multi'] for r in dist_launches['c']):
+    _fail('phase 24c: a rank never launched scatter_rows_multi')
   scorer_per_step = {
       'gam': scorer_numbers['gam']['graph']['launches_per_step'],
       'groupwise': scorer_numbers['groupwise']['graph']['launches_per_step'],
@@ -6572,7 +7433,7 @@ def main():
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
       'kstep': kstep, 'pipeline': pipeline_numbers, 'elwc': elwc_numbers,
       'eval': eval_numbers, 'zoo': zoo_numbers, 'scorers': scorer_numbers,
-      'encoder': encoder_numbers, 'card': card}
+      'encoder': encoder_numbers, 'dist': dist_numbers, 'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
@@ -6733,6 +7594,12 @@ def main():
     entry['launches_encoder_per_step'] = {
         k: v[entry['name']] for k, v in encoder_per_step.items()
         if v.get(entry['name'])}
+    # Phase 24: the wrappers' count in 24a (the world of one) and on each
+    # rank of 24b-f.
+    entry['launches_dist'] = {
+        k: ([r[entry['name']] for r in v] if isinstance(v, list)
+            else v.get(entry['name'], 0))
+        for k, v in dist_launches.items()}
   # Row 10 at the encoder's token table, [30522, 768] x 3, the sparse
   # step's own ids.
   kernels[-1].update({f'encoder_{k}': v for k, v in

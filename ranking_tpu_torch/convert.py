@@ -53,6 +53,9 @@ The other scorers and layers:
   the port's encoder keeps flax's names and layouts, so each path maps to
   the name with '.' for '/', the leaf as it is.
 
+``from_flax_sharded`` gives one rank's shards of the same, for a model
+laid out over a ``parallel`` mesh.
+
 ``to_flax`` is the inverse, for anything keyed like the port's
 ``state_dict``: parameters after a train step, or gradients
 (``{name: p.grad}``). It lays them out as the flax tree, so that tests
@@ -163,6 +166,18 @@ def from_flax(variables: Mapping[str, Any],
           state[f'{_ATTENTION_PREFIX}attentions.{i}.{part}.{leaf}'] = \
               _tensor(mha[part][leaf])
   return state
+
+
+def from_flax_sharded(variables: Mapping[str, Any], model: torch.nn.Module,
+                      mesh, input_batch_norm: bool = False
+                      ) -> 'OrderedDict[str, torch.Tensor]':
+  """One rank's ``state_dict`` for a flax model's whole variables (numpy
+  arrays): ``from_flax``, then the rank's slice of each parameter that
+  ``model`` holds split over ``mesh``'s model group
+  (``parallel.mesh.shard_module``, ``ShardedEmbeddingEncoder``)."""
+  from ranking_tpu_torch.parallel import mesh as mesh_lib
+  whole = from_flax(variables, input_batch_norm=input_batch_norm)
+  return OrderedDict(mesh_lib.shard_state_dict(whole, model, mesh))
 
 
 def _dotted_leaves(tree: Mapping[str, Any], prefix: str = ''):

@@ -81,6 +81,12 @@ class EmbeddingEncoder(nn.Module):
     if self.slab is not None:
       # Slot ids, already reduced by the step; padding stays negative.
       return pooled_lookup(self.slab, ids, self.combiner)
+    if 'embedding' in self.__dict__.get('model_shards', ()):
+      # A row shard (parallel.mesh.shard_module): the sharded lookup.
+      from ranking_tpu_torch.parallel import embedding as sharded
+      return sharded.sharded_pooled_lookup(
+          self.embedding, self._ids(ids), self.__dict__['mesh'],
+          self.combiner)
     return pooled_lookup(self.embedding, self._ids(ids), self.combiner)
 
 
@@ -142,14 +148,26 @@ class Embed(nn.Module):
                       generator=torch.Generator() if generator is None
                       else generator)
 
+  def table(self) -> Tensor:
+    """The whole table: where it is row-sharded over the model group
+    (``parallel.mesh.shard_module``), the shards gathered (every rank of
+    the group then computes the same lookups, so each keeps its own rows'
+    gradient)."""
+    if 'embedding' not in self.__dict__.get('model_shards', ()):
+      return self.embedding
+    from ranking_tpu_torch.parallel import comm
+    return comm.gather_replicated(self.embedding,
+                                  self.__dict__['mesh'].model_group, 0)
+
   def forward(self, ids: Tensor) -> Tensor:
     if self.slab is not None:
       # Slot ids of the batch's unique rows, all in range.
       return F.embedding(ids, self.slab).to(self.dtype)
-    if self.embedding.shape[0] == 1:
-      return self.embedding[0].to(self.dtype).expand(
-          tuple(ids.shape) + (self.embedding.shape[1],))
-    return take(self.embedding, ids).to(self.dtype)
+    table = self.table()
+    if table.shape[0] == 1:
+      return table[0].to(self.dtype).expand(
+          tuple(ids.shape) + (table.shape[1],))
+    return take(table, ids).to(self.dtype)
 
 
 @contextlib.contextmanager

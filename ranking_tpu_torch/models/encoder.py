@@ -86,7 +86,7 @@ class TransformerBlock(nn.Module):
       raise ValueError('training with dropout needs a torch.Generator')
     t = x.shape[1]
     return (layers.dropout_mask((1, 1, t, t), self.dropout, generator,
-                                x.device),
+                                x.device, row_dim=None),
             layers.dropout_mask(x.shape, self.dropout, generator, x.device))
 
   def forward(self, x: Tensor, mask: Tensor,
@@ -168,10 +168,10 @@ class TransformerEncoder(nn.Module):
     x = self.token_embed(safe)
     # Positions 0..T-1 are rows 0..T-1 (T <= max_len by the guard): a slice,
     # where flax looks up an arange.
-    x = x + self.pos_embed.embedding[:ids.shape[-1]].to(self.dtype)
+    x = x + self.pos_embed.table()[:ids.shape[-1]].to(self.dtype)
     if self.type_vocab_size:
       if segment_ids is None:
-        x = x + self.type_embed.embedding[0].to(self.dtype)
+        x = x + self.type_embed.table()[0].to(self.dtype)
       else:
         x = x + self.type_embed(torch.where(mask, segment_ids, 0))
     x = self.LayerNorm_0(x)

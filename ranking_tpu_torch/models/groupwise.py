@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ranking_tpu_torch.models import layers as layers_lib
+from ranking_tpu_torch.parallel import comm
 from ranking_tpu_torch.utils import list_ops
 
 Tensor = torch.Tensor
@@ -170,8 +171,9 @@ class GroupwiseDNNScorer(nn.Module):
           raise ValueError('training with group_size > 1 shuffles the '
                            'valid items and needs a torch.Generator')
         else:
-          draws = torch.rand((batch, list_size), generator=generator,
-                             dtype=torch.float32, device=generator.device)
+          draws = comm.draw_rows(lambda s: torch.rand(
+              s, generator=generator, dtype=torch.float32,
+              device=generator.device), (batch, list_size))
       indices, group_mask = rolling_group_indices(mask, g, draws=draws)
       total = total + score_groups(indices, group_mask)
     logits = total / float(num_shuffles)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ranking_tpu_torch.ops.cuda import fused_bn
+from ranking_tpu_torch.parallel import comm
 from ranking_tpu_torch.utils import list_ops
 
 Tensor = torch.Tensor
@@ -139,11 +140,18 @@ def _batch_norm(dim: int, momentum: float) -> nn.BatchNorm1d:
 
 
 def dropout_mask(shape, rate: float, generator: torch.Generator,
-                 device) -> Tensor:
+                 device, row_dim: Optional[int] = 0) -> Tensor:
   """Inverted-dropout factors: 0 with probability ``rate``, else
-  ``1 / (1 - rate)``. One generator state gives one mask."""
-  keep = torch.rand(shape, generator=generator, device=device) >= rate
-  return keep.to(torch.float32) / (1.0 - rate)
+  ``1 / (1 - rate)``. One generator state gives one mask. ``row_dim`` is
+  the axis of the batch's rows (None for a mask shared by them): inside a
+  data-parallel step the mask is this rank's rows of the global batch's
+  (``parallel.comm.draw_rows``)."""
+  def draw(s):
+    keep = torch.rand(s, generator=generator, device=device) >= rate
+    return keep.to(torch.float32) / (1.0 - rate)
+  if row_dim is None:
+    return draw(tuple(shape))
+  return comm.draw_rows(draw, shape, row_dim)
 
 
 class Tower(nn.Module):
@@ -232,10 +240,11 @@ class Tower(nn.Module):
       return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                           bn.bias, training=False, eps=bn.eps).to(
                               x.dtype).reshape(shape)
-    # float32 statistics over all rows, fast variance.
+    # float32 statistics over all rows, fast variance; inside a
+    # data-parallel step over the global batch's rows.
     x32 = x.to(torch.float32)
-    mean = x32.mean(0)
-    var = torch.clamp((x32 * x32).mean(0) - mean * mean, min=0.0)
+    mean, mean_sq = comm.row_means([x32, x32 * x32])
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     self._update_running(bn, mean, var)
     y = (x32 - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     return y.to(x.dtype).reshape(shape)
@@ -319,11 +328,28 @@ class DenseGeneral(nn.Module):
     _variance_scaling_(self.kernel, math.prod(in_shape), generator)
     self.n_in = len(in_shape)
 
-  def forward(self, x: Tensor) -> Tensor:
+  def forward(self, x: Tensor, copied: bool = False) -> Tensor:
+    """Under tensor parallelism (``parallel.mesh.shard_module`` split the
+    kernel over the model group) a kernel split along an output axis is
+    column-parallel: ``x``, replicated over the group, enters through the
+    *copy* role (unless the caller ``copied`` it already) and the output
+    is this rank's slice. One split along a contracted axis is
+    row-parallel: the partial products are summed by the *reduce* role and
+    the bias, whole on every rank, is added once, after the sum."""
+    dim = self.__dict__.get('model_shards', {}).get('kernel')
+    group = None if dim is None else self.__dict__['mesh'].model_group
+    if dim is not None and dim >= self.n_in and not copied:
+      x = comm.copy(x, group)
     dims = list(range(x.ndim - self.n_in, x.ndim))
-    return torch.tensordot(x, self.kernel.to(x.dtype),
-                           dims=(dims, list(range(self.n_in)))) + \
-        self.bias.to(x.dtype)
+    y = torch.tensordot(x, self.kernel.to(x.dtype),
+                        dims=(dims, list(range(self.n_in))))
+    if dim is not None and dim < self.n_in:
+      y = comm.reduce(y, group)
+    return y + self.bias.to(x.dtype)
+
+  def column_parallel(self) -> bool:
+    dim = self.__dict__.get('model_shards', {}).get('kernel')
+    return dim is not None and dim >= self.n_in
 
 
 class MultiHeadAttention(nn.Module):
@@ -363,7 +389,13 @@ class MultiHeadAttention(nn.Module):
     dropout factors of the weights are ``weights_dropout`` (``[1, 1, L,
     L]``, drawn by the caller) where given, else drawn from
     ``generator``."""
-    q, k, v = self.query(x), self.key(x), self.value(x)   # [B, L, H, D]
+    # Column-parallel projections (heads split over the model group)
+    # share one copy of their input: one all-reduce of its gradient.
+    copied = self.query.column_parallel()
+    if copied:
+      x = comm.copy(x, self.query.__dict__['mesh'].model_group)
+    q, k, v = (self.query(x, copied), self.key(x, copied),
+               self.value(x, copied))                     # [B, L, H, D]
     q = q / math.sqrt(q.shape[-1])
     logits = torch.einsum('bqhd,bkhd->bhqk', q, k)
     logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
@@ -374,7 +406,7 @@ class MultiHeadAttention(nn.Module):
           raise ValueError('training with dropout needs a torch.Generator')
         weights_dropout = dropout_mask(
             (1, 1) + tuple(weights.shape[-2:]), self.dropout, generator,
-            x.device)
+            x.device, row_dim=None)
       weights = weights * weights_dropout.to(weights.dtype)
     return self.out(torch.einsum('bhqk,bkhd->bqhd', weights, v))
 
@@ -540,7 +572,7 @@ class GAMLayer(nn.Module):
         if generator is None:
           raise ValueError('training with dropout needs a torch.Generator')
         h = h * dropout_mask(h.shape, first.dropout, generator,
-                             h.device).to(h.dtype)
+                             h.device, row_dim=1).to(h.dtype)
     return h[..., 0].to(torch.float32).transpose(0, 1).reshape(
         lead + (len(towers),))
 
@@ -560,8 +592,8 @@ def _stacked_batch_norm(bns: Sequence[nn.BatchNorm1d], h: Tensor,
     var = torch.stack([bn.running_var for bn in bns])[:, None, :]
     return ((h32 - mean) * (torch.rsqrt(var + eps) * scale)
             + offset).to(h.dtype)
-  mean = h32.mean(1)
-  var = torch.clamp((h32 * h32).mean(1) - mean * mean, min=0.0)
+  mean, mean_sq = comm.row_means([h32, h32 * h32], dim=1)
+  var = torch.clamp(mean_sq - mean * mean, min=0.0)
   with torch.no_grad():
     torch._foreach_lerp_([bn.running_mean for bn in bns],
                          list(mean.detach().unbind(0)), bns[0].momentum)

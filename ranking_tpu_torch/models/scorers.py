@@ -17,6 +17,7 @@ from torch import nn
 
 from ranking_tpu_torch.models import embeddings as emb_lib
 from ranking_tpu_torch.models import layers as layers_lib
+from ranking_tpu_torch.parallel import comm
 from ranking_tpu_torch.utils import fns
 from ranking_tpu_torch.utils import list_ops
 
@@ -164,8 +165,9 @@ def _normal(shape, generator: Optional[torch.Generator], device) -> Tensor:
   """Standard normal draws of ``shape`` on ``device`` from ``generator``."""
   if generator is None:
     raise ValueError('training with input noise needs a torch.Generator')
-  return torch.randn(shape, generator=generator, dtype=torch.float32,
-                     device=generator.device).to(device)
+  return comm.draw_rows(lambda s: torch.randn(
+      s, generator=generator, dtype=torch.float32,
+      device=generator.device), shape).to(device)
 
 
 class DINScorer(nn.Module):
@@ -236,8 +238,9 @@ class EmbeddingDNNScorer(nn.Module):
   context and examples, as the submodule ``embed_<name>``; the tower is the
   ``DNNScorer`` ``dnn``. The tower's input width is ``embedding_dim`` for
   each vocabulary name plus ``dense_width``, the width of the dense
-  features. The row-sharded tables of the JAX package's ``mesh`` option are
-  not ported yet.
+  features. With a ``mesh`` (``parallel.make_mesh``) each table is a
+  ``parallel.ShardedEmbeddingEncoder``: row-sharded over the mesh's model
+  group, with the explicit-collective lookup.
   """
 
   def __init__(
@@ -257,16 +260,20 @@ class EmbeddingDNNScorer(nn.Module):
       mesh=None,
   ):
     super().__init__()
-    if mesh is not None:
-      raise NotImplementedError('EmbeddingDNNScorer(mesh=...): row-sharded '
-                                'tables are not ported yet')
     self.output_units = output_units
     generator = torch.Generator() if generator is None else generator
     self.vocab_names = sorted(vocab_sizes)
     for name in self.vocab_names:
-      self.add_module(f'embed_{name}', emb_lib.EmbeddingEncoder(
-          vocab_sizes[name], embedding_dim, combiner=combiner,
-          generator=generator))
+      if mesh is not None:
+        from ranking_tpu_torch.parallel import embedding as sharded_emb
+        encoder = sharded_emb.ShardedEmbeddingEncoder(
+            vocab_sizes[name], embedding_dim, mesh, combiner=combiner,
+            generator=generator)
+      else:
+        encoder = emb_lib.EmbeddingEncoder(
+            vocab_sizes[name], embedding_dim, combiner=combiner,
+            generator=generator)
+      self.add_module(f'embed_{name}', encoder)
     self.dnn = DNNScorer(
         hidden_layer_dims,
         in_features=embedding_dim * len(self.vocab_names) + dense_width,

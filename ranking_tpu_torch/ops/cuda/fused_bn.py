@@ -595,39 +595,71 @@ def _bn_fold(col_sum, col_ssq, gamma, beta, n, eps: float):
   return mu, var, sig_inv, s, t
 
 
-def _layer_consts(fold, s1, s2, col_sum, n):
-  """Per-column BN backward constants and parameter gradients of a layer."""
+def _layer_consts(fold, s1, s2, col_sum, n, local=None):
+  """Per-column BN backward constants and parameter gradients of a layer.
+
+  Under data parallelism ``s1, s2, col_sum, n`` are the sums over the data
+  group, which the constants need, and ``local`` this rank's own
+  ``(s1, s2, col_sum, n)``: the parameter gradients are linear in them, so
+  each rank returns its share and the data group's gradient all-reduce
+  sums the shares."""
   mu, _, sig_inv, s, _ = fold
   dbeta = s1
   dgamma = (s2 - mu * s1) * sig_inv
   c2 = s * sig_inv * dgamma / n
   c1 = s * (s1 / n - mu * sig_inv * dgamma / n)
+  if local is not None:
+    s1, s2, col_sum, n = local
+    dbeta = s1
+    dgamma = (s2 - mu * s1) * sig_inv
   db = s * s1 - col_sum * c2 - n * c1
   return dbeta, dgamma, c1, c2, db
 
 
+def _sum_over(group, *terms):
+  """The terms summed over the data group, in one all-reduce (the terms
+  themselves where there is no group)."""
+  from ranking_tpu_torch.parallel import comm
+  if group is None:
+    return list(terms)
+  sizes = [t.numel() for t in terms]
+  flat = comm.all_reduce(torch.cat([t.reshape(-1) for t in terms]), group)
+  return [x.view_as(t) for x, t in zip(torch.split(flat, sizes), terms)]
+
+
 class _FusedBnMlp(torch.autograd.Function):
-  """``(x, mask, eps, act_dtype, *weights, *biases, *gammas, *betas) ->
-  (a_last, *means, *vars)``; weights in the parameter layout
-  ``[F_out, F_in]``. Means and vars are not differentiable."""
+  """``(x, mask, eps, act_dtype, group, *weights, *biases, *gammas, *betas)
+  -> (a_last, *means, *vars)``; weights in the parameter layout
+  ``[F_out, F_in]``. Means and vars are not differentiable.
+
+  ``group``: the data group of a data-parallel step, or None. With one,
+  ``x`` is this rank's rows of the global batch, and the moments are the
+  global batch's: each layer's column sums, sums of squares and valid
+  count are summed over the group between the launches, and in the
+  backward so are the reduction terms that row 3 gives and row 4 emits.
+  The kernels do not change."""
 
   @staticmethod
-  def forward(ctx, x, mask, eps, act_dtype, *params):
+  def forward(ctx, x, mask, eps, act_dtype, group, *params):
     num_layers = len(params) // 4
     weights, bs, gammas, betas = (params[i * num_layers:(i + 1) * num_layers]
                                   for i in range(4))
     x = x.detach()
     mask_col = mask.detach().to(torch.float32).reshape(-1, 1)
-    n = torch.clamp(mask_col.sum(), min=1.0)
+    n_local = mask_col.sum()
+    (n,) = _sum_over(group, n_local)
+    n = torch.clamp(n, min=1.0)
     f_0 = x.shape[1]
     s_in = torch.ones((f_0,), dtype=torch.float32, device=x.device)
     t_in = torch.zeros((f_0,), dtype=torch.float32, device=x.device)
-    ys, sums, folds = [], [], []
+    ys, sums, local_sums, folds = [], [], [], []
     h, relu_in = x, False
     for weight, b, gamma, beta in zip(weights, bs, gammas, betas):
       y, col_sum, col_ssq = layer_forward(
           h, mask_col, s_in, t_in, weight.detach().t(), b.detach(),
           relu_in=relu_in, act_dtype=act_dtype)
+      local_sums.append(col_sum)
+      col_sum, col_ssq = _sum_over(group, col_sum, col_ssq)
       fold = _bn_fold(col_sum, col_ssq, gamma.detach(), beta.detach(), n, eps)
       ys.append(y)
       sums.append(col_sum)
@@ -639,12 +671,16 @@ class _FusedBnMlp(torch.autograd.Function):
     vars_ = tuple(f[1] for f in folds)
     ctx.fused = (x, mask_col, n, ys, sums, folds,
                  [w.detach() for w in weights])
+    ctx.group = group
+    ctx.local = (n_local, local_sums)
     ctx.mark_non_differentiable(*means, *vars_)
     return (a_last, *means, *vars_)
 
   @staticmethod
   def backward(ctx, g_a, *_):
     x, mask_col, n, ys, sums, folds, weights = ctx.fused
+    group = ctx.group
+    n_local, local_sums = ctx.local
     num_layers = len(ys)
     input_grad = ctx.needs_input_grad[0]
     g = g_a
@@ -662,7 +698,10 @@ class _FusedBnMlp(torch.autograd.Function):
     a0 = b0 = dx0 = None
     for l in range(top, -1, -1):
       fold = folds[l]
-      dbeta, dgamma, c1, c2, db = _layer_consts(fold, s1, s2, sums[l], n)
+      local = None if group is None else (s1, s2, local_sums[l], n_local)
+      s1, s2 = _sum_over(group, s1, s2)
+      dbeta, dgamma, c1, c2, db = _layer_consts(fold, s1, s2, sums[l], n,
+                                                local)
       d_bs[l], d_gammas[l], d_betas[l] = db, dgamma, dbeta
       s, t = fold[3], fold[4]
       w = weights[l].t()
@@ -691,7 +730,7 @@ class _FusedBnMlp(torch.autograd.Function):
           g, d_ws[l], s1, s2 = outs
     grads = ([dw.t().contiguous() for dw in d_ws] + d_bs + d_gammas
              + d_betas)
-    return (dx0, None, None, None, *grads)
+    return (dx0, None, None, None, None, *grads)
 
 
 def fused_bn_mlp(x, mask, weights: Sequence[Tensor], bs: Sequence[Tensor],
@@ -724,8 +763,9 @@ def fused_bn_mlp(x, mask, weights: Sequence[Tensor], bs: Sequence[Tensor],
   if not input_grad:
     x = x.detach()
   num_layers = len(weights)
-  outs = _FusedBnMlp.apply(x, mask, float(eps), act_dtype, *weights, *bs,
-                           *gammas, *betas)
+  from ranking_tpu_torch.parallel import comm
+  outs = _FusedBnMlp.apply(x, mask, float(eps), act_dtype, comm.data_group(),
+                           *weights, *bs, *gammas, *betas)
   return (outs[0], tuple(outs[1:1 + num_layers]),
           tuple(outs[1 + num_layers:]))
 

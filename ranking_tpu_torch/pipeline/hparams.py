@@ -60,7 +60,9 @@ class PipelineHparams:
   # Optional per-example weight feature: feeds the loss and, with
   # use_weighted_metrics, the metric suite.
   weights_feature_name: Optional[str] = None
-  # One card: None or 1 only.
+  # The (data, model) mesh over the ranks of the process group
+  # (parallel/mesh.py): None data is the largest divisor of the global
+  # batch that fits world // mesh_model.
   mesh_data: Optional[int] = None
   mesh_model: int = 1
   seed: Optional[int] = 1
@@ -72,14 +74,6 @@ class PipelineHparams:
   # step, so that a resumed run consumes the batches of an uninterrupted
   # one. False restarts the stream from the top, as the reference does.
   resume_dataset: bool = False
-
-  def __post_init__(self):
-    for name in ('mesh_data', 'mesh_model'):
-      value = getattr(self, name)
-      if value not in (None, 1):
-        raise ValueError(
-            f'{name}={value}: the port runs on one card, a mesh of one; '
-            'use None or 1')
 
 
 @dataclasses.dataclass

@@ -12,7 +12,19 @@ CUDA the eval step is one captured graph a batch shape.
 
 It takes an ``nn.Module`` that already holds its weights: the port has no
 ``init(rng)``, so a run that should start from the JAX package's weights
-converts them first (``convert.from_flax``). There is no mesh: one card.
+converts them first (``convert.from_flax``).
+
+Over several processes (``torchrun``, ``parallel.init_distributed``) the
+pipeline lays a ``(data, model)`` mesh over the ranks (``parallel/``), as
+the JAX package lays one over its devices: every rank reads the global
+stream with the same seed and the steps give each rank its rows
+(``train/steps.py``), so that a run's result does not depend on the mesh;
+``sharding_rules`` split the parameters that they name over the model
+group. Eval pads a ragged batch to the data axis's multiple, and the
+metric states are summed over the data group. The first rank alone writes
+checkpoints, event logs and exports, of the whole state. Under gloo with
+CUDA tensors the steps dispatch eagerly (gloo's collectives cannot be
+captured in a CUDA graph).
 A dataset builder is any object with ``train_batches()`` and
 ``valid_batches()`` iterators of ``RankingBatch``; one whose
 ``train_batches`` takes ``skip_batches`` resumes without parsing the
@@ -39,6 +51,7 @@ from ranking_tpu_torch.data import dataset
 from ranking_tpu_torch.data.batch import RankingBatch, stack_numpy_batches
 from ranking_tpu_torch.ops import loss_registry, metric_registry
 from ranking_tpu_torch.ops.reductions import Reduction
+from ranking_tpu_torch.parallel import mesh as mesh_lib
 from ranking_tpu_torch.pipeline.hparams import (
     DatasetHparams, PipelineHparams, optimizer_from_hparams,
     sparse_optimizer_from_hparams)
@@ -209,7 +222,13 @@ class SimplePipeline:
   model, each task's loss weighted by a dict ``hparams.loss_weights``
   (default 1), in the train step and in the validation loss alike.
   ``device`` (default ``'cuda'``; without a card it raises) is where the
-  model, its optimizers and every step live.
+  model, its optimizers and every step live. ``mesh`` (every rank's own,
+  from ``parallel.make_mesh``) or, without one, ``hparams.mesh_data`` and
+  ``mesh_model`` over the ranks of the process group lay out the run; with
+  no process group and no mesh the pipeline runs on one card, without
+  collectives. ``sharding_rules`` (``parallel.DEFAULT_RULES``, or
+  ``ENCODER_TP_RULES`` for the tensor-parallel encoder) split parameters
+  over the model axis.
   """
 
   def __init__(
@@ -220,8 +239,13 @@ class SimplePipeline:
       metric_fns: Optional[Mapping[str, Callable]] = None,
       loss_fn: Optional[Callable] = None,
       device: DeviceLike = 'cuda',
+      mesh: Optional[mesh_lib.Mesh] = None,
+      sharding_rules=mesh_lib.DEFAULT_RULES,
   ):
     self.device = resolve_device(device)
+    self._given_mesh = mesh
+    self.mesh: Optional[mesh_lib.Mesh] = None
+    self._sharding_rules = sharding_rules
     self.model = model
     self.dataset_builder = dataset_builder
     self.hparams = hparams
@@ -265,8 +289,33 @@ class SimplePipeline:
 
   # -- build ---------------------------------------------------------------
 
+  def _make_mesh(self, sample: RankingBatch) -> Optional[mesh_lib.Mesh]:
+    """The given mesh; else one over the process group's ranks where there
+    is a group or the hparams ask for more than one rank; else None."""
+    if self._given_mesh is not None:
+      return self._given_mesh
+    import torch.distributed as dist
+    hp = self.hparams
+    up = dist.is_available() and dist.is_initialized()
+    if not up and hp.mesh_model == 1 and hp.mesh_data in (None, 1):
+      return None
+    data = hp.mesh_data
+    if data is None:
+      world = dist.get_world_size() if up else 1
+      data = mesh_lib.default_data_size(sample.batch_size, world,
+                                        hp.mesh_model)
+    return mesh_lib.make_mesh(data=data, model=hp.mesh_model)
+
+  @property
+  def _writer(self) -> bool:
+    """Whether this rank writes the run's files."""
+    return self.mesh is None or self.mesh.rank == 0
+
   def _build(self, sample: RankingBatch) -> state_lib.TrainState:
     hp = self.hparams
+    self.mesh = mesh = self._make_mesh(sample)
+    if mesh is not None:
+      mesh_lib.shard_module(self.model, mesh, self._sharding_rules)
     sparse_tx = sparse_optimizer_from_hparams(hp)
     state = state_lib.create_train_state(
         self.model, optimizer_from_hparams(hp), device=self.device,
@@ -285,10 +334,11 @@ class SimplePipeline:
     self.ckpt = checkpoint.CheckpointManager(
         os.path.join(hp.model_dir, 'checkpoints'),
         best_metric=(self._monitor if hp.export_best_model else None),
-        best_mode=('max' if hp.best_exporter_metric_higher_better else 'min'))
+        best_mode=('max' if hp.best_exporter_metric_higher_better else 'min'),
+        mesh=mesh)
     state = self.ckpt.restore(state)  # preemption-safe resume
-    self._tb = tensorboard.SummaryWriter(
-        os.path.join(hp.model_dir, 'tensorboard'))
+    self._tb = (tensorboard.SummaryWriter(
+        os.path.join(hp.model_dir, 'tensorboard')) if self._writer else None)
     step_fn = None
     if sparse_tx is not None:
       # The sparse step wherever the model's naming ties every lazy table
@@ -302,39 +352,66 @@ class SimplePipeline:
       if efs and {ef.param_path for ef in efs} == tables:
         step_fn = steps.make_sparse_train_step(
             self.loss_fn, efs, multi_task_weights=self._task_weights,
-            device=self.device)
+            device=self.device, mesh=mesh)
     if step_fn is None:
       step_fn = steps.make_train_step(
           self.loss_fn, multi_task_weights=self._task_weights,
-          device=self.device)
+          device=self.device, mesh=mesh)
     self._train_step = step_fn
+    eager = (mesh is not None and mesh.size > 1 and mesh.backend == 'gloo'
+             and self.device.type == 'cuda')
+    if eager:
+      import warnings
+      warnings.warn('gloo collectives cannot be captured in a CUDA graph: '
+                    'the train and eval steps dispatch eagerly')
     # steps_per_execution (keras/pipeline.py:287-289): K steps a dispatch.
-    self._multi_step = steps.make_multi_step(step_fn, device=self.device)
+    self._multi_step = steps.make_multi_step(step_fn, device=self.device,
+                                             eager=eager)
     # On CUDA one captured eval step a batch shape, kept across the
     # epochs of the run.
-    self._eval_step = steps.GraphedEvalStep(
-        steps.make_eval_step(self.metric_fns, loss_fn=self.loss_fn,
-                             multi_task_weights=self._task_weights,
-                             device=self.device), self.device)
+    eval_step = steps.make_eval_step(self.metric_fns, loss_fn=self.loss_fn,
+                                     multi_task_weights=self._task_weights,
+                                     device=self.device, mesh=mesh)
+    self._eval_step = (eval_step if eager
+                       else steps.GraphedEvalStep(eval_step, self.device))
     return state
 
   # -- loops ---------------------------------------------------------------
 
+  def _valid_batches(self) -> Iterator[RankingBatch]:
+    """The validation stream, each ragged batch padded with fully masked
+    rows to the data axis's multiple, beside its real row count."""
+    n_data = 1 if self.mesh is None else self.mesh.data
+    for batch in self.dataset_builder.valid_batches():
+      n_real = batch.batch_size
+      if n_real % n_data:
+        batch = batch.pad_to(-(-n_real // n_data) * n_data)
+      yield batch, n_real
+
   def _run_eval(self, state: state_lib.TrainState) -> Dict[str, float]:
     """One pass over the validation stream (at most ``validation_steps``
     batches), through the graphed eval step on CUDA. Every batch passes
-    its real row count as ``num_valid_rows``; on one card no batch is
-    padded. The streamed loss is ``val_loss``."""
+    its real row count as ``num_valid_rows``, which gives the rows that pad
+    a ragged batch to the data axis's multiple metric weight 0. The
+    streamed loss is ``val_loss``."""
     states = steps.init_metric_states(self.metric_fns, with_loss=True,
                                       device=self.device)
-    feed = dataset.prefetch_to_device(self.dataset_builder.valid_batches(),
-                                      self.device, flat_examples=True)
+    pairs = self._valid_batches()
+    counts = []
+
+    def batches():
+      for batch, n_real in pairs:
+        counts.append(n_real)
+        yield batch
+
+    feed = dataset.prefetch_to_device(batches(), self.device,
+                                      flat_examples=True)
     for n, batch in enumerate(feed, start=1):
       states, _ = self._eval_step(state.model, batch, states,
-                                  num_valid_rows=batch.batch_size)
+                                  num_valid_rows=counts[n - 1])
       if n >= self.hparams.validation_steps:
         break
-    results = steps.metric_results(states)
+    results = steps.metric_results(states, self.mesh)
     values = torch.stack([v.to(torch.float32) for v in results.values()])
     out = dict(zip(results, values.cpu().tolist()))
     out['val_loss'] = out.pop('loss')
@@ -403,6 +480,8 @@ class SimplePipeline:
     raw_iter = iter(self.dataset_builder.train_batches())
     first = next(raw_iter)  # the state's sparse features come from data
     state = self._build(first)
+    if self.mesh is not None and not self.mesh.member:
+      return {}   # a rank past the mesh idles (default_data_size warned)
     start_step = int(state.step)
     step = start_step
     total_steps = hp.num_epochs * hp.steps_per_epoch
@@ -445,9 +524,10 @@ class SimplePipeline:
           ).item()
       dt = time.perf_counter() - t0
       epoch_metrics['examples_per_sec'] = lists_seen / dt if dt else 0.0
-      checkpoint.write_metrics_log(hp.model_dir, step, epoch_metrics)
-      self._tb.scalars(step, epoch_metrics)
-      self._tb.flush()
+      if self._writer:
+        checkpoint.write_metrics_log(hp.model_dir, step, epoch_metrics)
+        self._tb.scalars(step, epoch_metrics)
+        self._tb.flush()
       self.ckpt.save(state, metrics=epoch_metrics)
       history = epoch_metrics
       if verbose:
@@ -482,15 +562,18 @@ class SimplePipeline:
         if patience_left <= 0:
           break
 
-    self._tb.close()
+    if self._tb is not None:
+      self._tb.close()
     # Export latest, and (the reference's latest_model /
     # best_model_by_metric pair, keras/pipeline.py:634-650) the best-by-
     # metric weights, which under early stopping are not the final ones.
     checkpoint.export_params(state,
-                             os.path.join(hp.model_dir, 'export', 'latest'))
+                             os.path.join(hp.model_dir, 'export', 'latest'),
+                             mesh=self.mesh)
     if hp.export_best_model:
       checkpoint.export_params(self.ckpt.restore_best(state),
-                               os.path.join(hp.model_dir, 'export', 'best'))
+                               os.path.join(hp.model_dir, 'export', 'best'),
+                               mesh=self.mesh)
     self.final_state = state
     return history
 

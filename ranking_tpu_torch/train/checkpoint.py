@@ -10,6 +10,13 @@ state with its step and rate tensors, the lazy-row optimizer's state, the
 step and the state's generator. Its metrics lie beside it in
 ``ckpt_<step>.json``. Every file is written to a temp name and renamed, so a
 reader never finds half of one.
+
+Under a mesh (``parallel/``) the files hold the whole state, in the same
+format: every rank gathers its shards over its model group, the first rank
+alone writes, and every rank restores by taking its slices of the whole
+tensors. So a checkpoint of one mesh restores on another, and on one card,
+where the padded table of a ``ShardedEmbeddingEncoder`` has the same rows
+(ranking_tpu/parallel/embedding.py:128-140).
 """
 
 from __future__ import annotations
@@ -87,6 +94,65 @@ def _payload(state: TrainState) -> Dict[str, Any]:
   return out
 
 
+def _map_sharded(payload: Mapping[str, Any], state: TrainState, fn
+                 ) -> Dict[str, Any]:
+  """``payload`` with ``fn(tensor, dim)`` applied to each tensor that is
+  split over the model group along ``dim``: sharded parameters, their
+  moments in the optimizer's state and in the lazy-row optimizer's."""
+  from ranking_tpu_torch.parallel import mesh as mesh_lib
+  dims = mesh_lib.sharded_dims(state.model)
+  if not dims:
+    return dict(payload)
+  by_id = {id(p): dims[n] for n, p in state.model.named_parameters()
+           if n in dims}
+  out = dict(payload)
+  out['model'] = {k: (fn(v, dims[k]) if k in dims else v)
+                  for k, v in payload['model'].items()}
+  if payload.get('optimizer') is not None and state.optimizer is not None:
+    params = [p for g in state.optimizer.param_groups for p in g['params']]
+    opt = dict(payload['optimizer'])
+    opt['state'] = {
+        i: ({k: (fn(v, by_id[id(params[i])])
+                 if torch.is_tensor(v) and v.ndim > 0 else v)
+             for k, v in entry.items()}
+            if id(params[i]) in by_id else entry)
+        for i, entry in payload['optimizer']['state'].items()}
+    out['optimizer'] = opt
+  if 'sparse_opt_state' in payload:
+    paths = {n.replace('.', '/'): d for n, d in dims.items()}
+    out['sparse_opt_state'] = {
+        k: ({kk: fn(vv, paths[k]) for kk, vv in v.items()}
+            if isinstance(v, dict) and k in paths else v)
+        for k, v in payload['sparse_opt_state'].items()}
+  return out
+
+
+def _whole(payload: Mapping[str, Any], state: TrainState, mesh
+           ) -> Dict[str, Any]:
+  """The payload with every shard gathered over the model group (a
+  collective: every rank calls it)."""
+  from ranking_tpu_torch.parallel import comm
+  return _map_sharded(
+      payload, state,
+      lambda v, d: comm.all_gather(v, mesh.model_group, d))
+
+
+def _slices(payload: Mapping[str, Any], state: TrainState, mesh
+            ) -> Dict[str, Any]:
+  """This rank's slices of a whole payload."""
+  from ranking_tpu_torch.parallel import mesh as mesh_lib
+  return _map_sharded(
+      payload, state, lambda v, d: mesh_lib.local_slice(v, d, mesh).clone(
+          memory_format=torch.contiguous_format))
+
+
+def _barrier(mesh) -> None:
+  """Every rank of the grid waits for the first rank's write."""
+  if mesh is not None and mesh.distributed:
+    import torch.distributed as dist
+    dist.barrier(group=mesh.grid_group)
+
+
 def _load_into(state: TrainState, ckpt: Mapping[str, Any]) -> TrainState:
   """Copies a checkpoint into ``state``'s own tensors, in place."""
   if ('sparse_opt_state' in ckpt) != (state.sparse_opt_state is not None):
@@ -121,7 +187,8 @@ class CheckpointManager:
 
   def __init__(self, directory: str, max_to_keep: int = 3,
                best_metric: Optional[str] = None,
-               best_mode: str = 'max'):
+               best_mode: str = 'max', mesh=None):
+    self.mesh = mesh
     self.directory = os.path.abspath(directory)
     self.max_to_keep = max_to_keep
     self.best_metric = best_metric
@@ -135,6 +202,16 @@ class CheckpointManager:
     step = int(state.step)
     metrics = {k: float(v) for k, v in (metrics or {}).items()}
     payload = _payload(state)
+    if self.mesh is not None:
+      payload = _whole(payload, state, self.mesh)
+      if self.mesh.rank == 0:
+        self._save(step, payload, metrics)
+      _barrier(self.mesh)
+      return
+    self._save(step, payload, metrics)
+
+  def _save(self, step: int, payload: Mapping[str, Any],
+            metrics: Mapping[str, float]) -> None:
     self._latest.write(step, payload, metrics)
     self._latest.keep_latest(self.max_to_keep)
     if self._best is None or not metrics:
@@ -154,8 +231,11 @@ class CheckpointManager:
     self._best.keep_latest(1)
 
   def _read(self, where: _Dir, step: int, state: TrainState) -> Dict:
-    return torch.load(where.path(step), map_location=state.device,
+    ckpt = torch.load(where.path(step), map_location=state.device,
                       weights_only=True)
+    if self.mesh is not None:
+      ckpt = _slices(ckpt, state, self.mesh)
+    return ckpt
 
   def restore(self, state: TrainState) -> TrainState:
     """Restores the latest checkpoint into ``state``, in place; a fresh
@@ -204,11 +284,20 @@ class CheckpointManager:
     return steps[-1] if steps else None
 
 
-def export_params(state: TrainState, path: str) -> None:
+def export_params(state: TrainState, path: str, mesh=None) -> None:
   """Inference export: the model's parameters and buffers in
-  ``<path>/params.pt``, replacing an earlier export."""
+  ``<path>/params.pt``, replacing an earlier export. Under ``mesh`` the
+  whole ones, gathered by every rank and written by the first."""
+  sd = state.model.state_dict()
+  if mesh is not None:
+    from ranking_tpu_torch.parallel import mesh as mesh_lib
+    sd = mesh_lib.gather_state_dict(sd, state.model, mesh)
+    if mesh.rank != 0:
+      _barrier(mesh)
+      return
   os.makedirs(path, exist_ok=True)
-  _atomic_save(state.model.state_dict(), os.path.join(path, 'params.pt'))
+  _atomic_save(sd, os.path.join(path, 'params.pt'))
+  _barrier(mesh)
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:

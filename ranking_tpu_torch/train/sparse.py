@@ -437,9 +437,14 @@ def _adagrad_inv(acc: Tensor, eps: float) -> Tensor:
 # versions. Both paths compute the same function, so no result depends on
 # the choice. A table of more than two dims is the same row copy over its
 # flattened rows. The JAX package's `dma_scatter=False` and
-# `_visibly_partitioned` exist for tables sharded over devices, which come
-# with parallel/; until then no table is partitioned and the switch is not
-# ported.
+# `_visibly_partitioned` (ranking_tpu/train/sparse.py:205-209, :362-372)
+# turn its kernel off on tables sharded over devices, because XLA's SPMD
+# partitioner cannot partition a custom call. Here a rank's shard of a
+# row-sharded table (parallel/) is a plain local tensor: the sparse step
+# hands `update_rows` the shard's own ids of the rows the rank owns, and the
+# kernel writes them into the shard and its moments as it writes a whole
+# table on one card. So the switch is not ported, and the kernel stays on
+# under a mesh.
 
 
 def _scatter_rows_multi_auto(bufs: Sequence[Tensor], uids: Tensor,

@@ -59,9 +59,15 @@ class _OptaxHooks:
   @torch.no_grad()
   def step(self, closure=None):
     if self.clip_norm is not None:
-      clip_by_global_norm_([p.grad for group in self.param_groups
-                            for p in group['params'] if p.grad is not None],
-                           self.clip_norm)
+      params = [p for group in self.param_groups for p in group['params']
+                if p.grad is not None]
+      mesh = getattr(self, 'mesh', None)
+      sharded = None
+      if mesh is not None and mesh.model_group is not None:
+        sharded = ([p.grad for p in params if id(p) in self.sharded_grads],
+                   mesh.model_group)
+      clip_by_global_norm_([p.grad for p in params], self.clip_norm,
+                           sharded)
     if self.schedule is not None:
       self.lr.copy_(self.schedule(self.count))
     out = super().step(closure)
@@ -92,14 +98,25 @@ class _OptaxHooks:
     self.count.copy_(count)
 
 
-def clip_by_global_norm_(grads: Sequence[Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: Sequence[Tensor], max_norm: float,
+                         sharded=None) -> None:
   """``optax.clip_by_global_norm``, in place: with ``norm`` the square root
   of the sum over ``grads`` (in their order) of each one's sum of squares,
   each gradient becomes ``where(norm < max_norm, g, g / norm * max_norm)``.
-  (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``.)"""
+  (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``.)
+  ``sharded``: ``(grads, group)``, those of ``grads`` that are a rank's
+  slices over a model group, whose squares are summed over the group."""
   if not grads:
     return
-  norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+  if sharded is None or not sharded[0]:
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+  else:
+    from ranking_tpu_torch.parallel import comm
+    ids = {id(g) for g in sharded[0]}
+    whole = sum(torch.sum(g * g) for g in grads if id(g) not in ids)
+    split = comm.all_reduce(sum(torch.sum(g * g) for g in sharded[0]),
+                            sharded[1])
+    norm = torch.sqrt(whole + split)
   keep = norm < max_norm
   for g in grads:
     g.copy_(torch.where(keep, g, g / norm * max_norm))

@@ -14,6 +14,19 @@ The port's copy of ``ranking_tpu/train/steps.py``:
 
 All of them keep their results on the device and never synchronize with the
 host.
+
+Each takes a ``parallel.Mesh`` (None: a mesh of one, on which every
+collective is the identity). Every rank of the mesh calls the step on the
+same global batch, and the step is the one-card step on that batch (the JAX
+package's SPMD semantics), up to float32 summation order: the forward runs on this rank's rows (``parallel.shard_batch``) with
+batch statistics and dropout masks of the global batch; the logits are
+gathered over the data group (``comm.gather_replicated``) and every rank
+computes the loss of the whole batch, so every batch-level statistic,
+random draw and reduction of a loss is the one-card one (``UniqueSoftmax``'s
+batch minimum, the Gumbel samples, Σ num / Σ den over ranks with unequal
+valid counts); the backward gives each rank its rows' share of every
+gradient, which the data group sums before the optimizer steps. Ranks of a
+model group hold the same rows and parameter shards, and agree.
 """
 
 from __future__ import annotations
@@ -28,6 +41,9 @@ from ranking_tpu_torch.data import batch as batch_lib
 from ranking_tpu_torch.data.batch import RankingBatch
 from ranking_tpu_torch.models import embeddings as emb_lib
 from ranking_tpu_torch.ops.metric_registry import MeanState
+from ranking_tpu_torch.parallel import comm
+from ranking_tpu_torch.parallel import mesh as mesh_lib
+from ranking_tpu_torch.parallel.embedding import ShardedEmbeddingEncoder
 from ranking_tpu_torch.train import sparse as sparse_lib
 from ranking_tpu_torch.train.state import TrainState
 from ranking_tpu_torch.utils import list_ops
@@ -105,10 +121,50 @@ def _sanity_metrics(loss: Tensor, batch: RankingBatch,
   }
 
 
+def _gather_rows(logits, mesh: mesh_lib.Mesh):
+  """This rank's logits gathered over the data group (every rank then
+  holds the global batch's), with the own-slice backward."""
+  if isinstance(logits, Mapping):
+    return {k: comm.gather_replicated(v, mesh.data_group, 0)
+            for k, v in logits.items()}
+  return comm.gather_replicated(logits, mesh.data_group, 0)
+
+
+def _attach_mesh(state: TrainState, mesh: mesh_lib.Mesh) -> None:
+  """Gives the dense optimizer the global norm of its gradients (for
+  ``clip_norm``): squares of model-sharded gradients are summed over the
+  model group as well."""
+  opt = state.optimizer
+  if opt is None or getattr(opt, 'mesh', None) is mesh:
+    return
+  shards = {id(p) for n, p in state.model.named_parameters()
+            if n in mesh_lib.sharded_dims(state.model)}
+  opt.mesh = mesh
+  opt.sharded_grads = shards
+
+
+def _data_parallel_backward(model, batch: RankingBatch, generator,
+                            mesh: mesh_lib.Mesh, total_loss):
+  """Forward on this rank's rows, loss of the global batch, backward, and
+  the data group's sum of the gradients of ``model``'s parameters.
+  Returns the gathered logits and the loss."""
+  local = mesh_lib.shard_batch(batch, mesh)
+  extra = {} if generator is None else {'generator': generator}
+  with comm.active(mesh):
+    logits = model(local.context, local.examples, local.mask, training=True,
+                   **extra)
+    logits = _gather_rows(logits, mesh)
+    loss = total_loss(batch.labels, logits, batch.features, generator)
+    loss.backward()
+  comm.all_reduce_grads(list(model.parameters()), mesh.data_group)
+  return logits, loss
+
+
 def make_train_step(
     loss_fn: Any,
     multi_task_weights: Optional[Mapping[str, float]] = None,
     device: DeviceLike = 'cuda',
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
   """Builds ``train_step(state, batch, generator=None) -> (state, metrics)``.
 
@@ -130,19 +186,22 @@ def make_train_step(
   lazy update, ``TrainState.apply_gradients``); ``make_sparse_train_step``
   is the step that never builds them, where batch features name the
   tables.
+
+  ``mesh``: every rank calls the step on the global batch (module
+  docstring); a row-sharded table's gradient and lazy update are the
+  rank's shard's.
   """
   device = resolve_device(device)
+  mesh = mesh or mesh_lib.Mesh(1, 1)
   _total_loss = _make_total_loss(loss_fn, multi_task_weights)
 
   def train_step(state: TrainState, batch: RankingBatch,
                  generator: Optional[torch.Generator] = None):
     batch = restore_flat_examples(batch.to(device))
     state.zero_grad()
-    extra = {} if generator is None else {'generator': generator}
-    logits = state.model(batch.context, batch.examples, batch.mask,
-                         training=True, **extra)
-    loss = _total_loss(batch.labels, logits, batch.features, generator)
-    loss.backward()
+    _attach_mesh(state, mesh)
+    logits, loss = _data_parallel_backward(state.model, batch, generator,
+                                           mesh, _total_loss)
     state.apply_gradients()
     state.step += 1
     return state, _sanity_metrics(loss, batch, logits)
@@ -185,11 +244,28 @@ def _group_by_table(embed_features, tables: Mapping[str, Tensor]):
   return by_path
 
 
+def _owned_slab(table: Tensor, uids: Tensor, mesh: mesh_lib.Mesh
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+  """The ``[K, dim]`` slab of a table row-sharded over the model group:
+  each rank contributes the rows of ``uids`` that its shard owns, and one
+  all-reduce over the group assembles them (outside autodiff), so that the
+  slab is the one-card one bit for bit. Returns ``(slab, local ids, owned)``:
+  the ids of ``uids`` in the shard (0 where not owned) and which it owns."""
+  rows = table.shape[0]
+  lo = mesh.model_index * rows
+  owned = (uids >= lo) & (uids < lo + rows)
+  local = torch.where(owned, uids - lo, 0)
+  part = torch.where(owned[:, None], table.detach().index_select(0, local),
+                     0.0)
+  return comm.all_reduce(part, mesh.model_group), local, owned
+
+
 def make_sparse_train_step(
     loss_fn: Any,
     embed_features: Any,
     multi_task_weights: Optional[Mapping[str, float]] = None,
     device: DeviceLike = 'cuda',
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
   """Train step whose embedding gradients never exist densely.
 
@@ -213,8 +289,17 @@ def make_sparse_train_step(
   state (``create_train_state(..., sparse_tx=...)``) must already be there.
   ``generator`` as in ``make_train_step``. Metrics are computed on the batch
   as given, not the remapped one.
+
+  ``mesh``: every rank deduplicates the global batch's ids alike; a table
+  row-sharded over the model group (``ShardedEmbeddingEncoder``, or
+  ``shard_module``'s) gives its slab from the rows each rank owns
+  (``_owned_slab``), the slab's gradient is summed over the data group
+  with the dense ones, and each rank writes the rows it owns of its shard
+  and of its moments, through the row scatter kernel (row 10) on the local
+  shard, as on one card.
   """
   device = resolve_device(device)
+  mesh = mesh or mesh_lib.Mesh(1, 1)
   embed_features = tuple(embed_features)
   _total_loss = _make_total_loss(loss_fn, multi_task_weights)
 
@@ -234,13 +319,17 @@ def make_sparse_train_step(
     info: Dict[str, Tuple[Tensor, Tensor]] = {}
     for path, group in by_path.items():
       table = tables[path]
+      encoder = state.model.get_submodule('.'.join(path.split('/')[:-1]))
+      sharded = 'embedding' in encoder.__dict__.get('model_shards', ())
+      # A sharded table's ids address the whole (padded) table.
+      n_rows = table.shape[0] * (mesh.model if sharded else 1)
       ids_list = []
       for ef in group:
         # Raw ids from the batch as given: `context` and `examples` are
         # rewritten to slot ids as the loop goes.
         src = batch.context if ef.source == 'context' else batch.examples
         ids = src[ef.feature]
-        modulus = ef.num_buckets or table.shape[0]
+        modulus = ef.num_buckets or n_rows
         ids_list.append(torch.where(ids >= 0, torch.remainder(ids, modulus),
                                     ids))
       flat = torch.cat([i.reshape(-1) for i in ids_list])
@@ -251,13 +340,19 @@ def make_sparse_train_step(
         dst[ef.feature] = remap[offset:offset + ids.numel()].reshape(
             ids.shape)
         offset += ids.numel()
-      slabs[path] = table.detach().index_select(0, uids).requires_grad_()
-      info[path] = (uids, filled)
+      if sharded:
+        slab, local, owned = _owned_slab(table, uids, mesh)
+        slabs[path] = slab.requires_grad_()
+        info[path] = (local, filled & owned)
+      else:
+        slabs[path] = table.detach().index_select(0, uids).requires_grad_()
+        info[path] = (uids, filled)
     batch2 = batch.replace(context=context, examples=examples)
     encoders = {}
     for path, slab in slabs.items():
       encoder = state.model.get_submodule('.'.join(path.split('/')[:-1]))
-      if not isinstance(encoder, (emb_lib.EmbeddingEncoder, emb_lib.Embed)):
+      if not isinstance(encoder, (emb_lib.EmbeddingEncoder, emb_lib.Embed,
+                                  ShardedEmbeddingEncoder)):
         raise ValueError(
             f'sparse table {path!r} belongs to a {type(encoder).__name__}; '
             'the sparse step redirects the lookups of EmbeddingEncoder and '
@@ -265,12 +360,11 @@ def make_sparse_train_step(
       encoders[encoder] = slab
 
     state.optimizer.zero_grad(set_to_none=True)
-    extra = {} if generator is None else {'generator': generator}
+    _attach_mesh(state, mesh)
     with emb_lib.read_from_slabs(encoders):
-      logits = state.model(batch2.context, batch2.examples, batch2.mask,
-                           training=True, **extra)
-    loss = _total_loss(batch2.labels, logits, batch2.features, generator)
-    loss.backward()
+      logits, loss = _data_parallel_backward(state.model, batch2, generator,
+                                             mesh, _total_loss)
+    comm.all_reduce_grads(list(slabs.values()), mesh.data_group)
     state.optimizer.step()
     row_grads = {p: (info[p][0], slabs[p].grad, info[p][1]) for p in slabs}
     state.sparse_tx.update_rows(
@@ -518,6 +612,7 @@ def make_eval_step(
     loss_fn: Optional[Any] = None,
     multi_task_weights: Optional[Mapping[str, float]] = None,
     device: DeviceLike = 'cuda',
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> Callable[..., Tuple[Dict[str, MeanState], Any]]:
   """Builds ``eval_step(model, batch, metric_states, num_valid_rows=None)
   -> (metric_states, logits)``.
@@ -534,8 +629,17 @@ def make_eval_step(
   streams into a reserved ``'loss'`` state weighted by the batch's count of
   lists with a valid item (the reference's val_loss). It is computed
   without a generator, as the JAX step passes no key.
+
+  ``mesh``: every rank calls the step on the global batch (a multiple of
+  the data axis: the pipeline pads a ragged one and passes
+  ``num_valid_rows``); each scores its rows, so its states hold its rows'
+  sums, and ``metric_results(states, mesh)`` sums them over the data group.
+  The loss is the global batch's, from the gathered logits, streamed by the
+  first rank of each data group only. The logits returned are the global
+  batch's.
   """
   device = resolve_device(device)
+  mesh = mesh or mesh_lib.Mesh(1, 1)
   if loss_fn is not None and 'loss' in metric_fns:
     raise ValueError("'loss' is reserved for the validation loss state; "
                      'rename the metric.')
@@ -553,20 +657,24 @@ def make_eval_step(
     would otherwise bias every unweighted metric down. None = every row is
     real data."""
     batch = restore_flat_examples(batch.to(device))
-    logits = model(batch.context, batch.examples, batch.mask, training=False)
+    local = mesh_lib.shard_batch(batch, mesh)
+    first_row = mesh.row_block(batch.batch_size)[0]
+    logits = model(local.context, local.examples, local.mask, training=False)
     # One shared sort per (scores, mask) across the metric suite, plus
     # NDCG's ideal sorts; results are identical to unshared sorts.
     with list_ops.shared_sort_scope():
       out = {}
       for name, fn in metric_fns.items():
-        task_logits, task_labels = _task_inputs(name, batch, logits)
+        task_logits, task_labels = _task_inputs(name, local, logits)
         values, weights = fn(task_labels, task_logits,
-                             features=batch.features)
+                             features=local.features)
         if num_valid_rows is not None:
-          rows = torch.arange(weights.shape[0], device=device) < num_valid_rows
+          rows = (torch.arange(weights.shape[0], device=device)
+                  + first_row) < num_valid_rows
           weights = weights * rows.reshape(
               (-1,) + (1,) * (weights.ndim - 1)).to(weights.dtype)
         out[name] = metric_states[name].update(values, weights)
+    logits = _gather_rows(logits, mesh)
     if total_loss is not None:
       loss = total_loss(batch.labels, logits, batch.features, None)
       # Weight by the batch's valid-list count so a ragged final batch
@@ -574,6 +682,9 @@ def make_eval_step(
       # a zeroed value (its loss over no list is typically NaN).
       n_lists = torch.sum(torch.any(batch.mask, dim=-1).to(torch.float32))
       loss = torch.where(n_lists > 0, loss, 0.0)
+      if mesh.data_index:
+        n_lists = torch.zeros_like(n_lists)   # one rank streams it
+        loss = torch.zeros_like(loss)
       out['loss'] = metric_states['loss'].update(loss[None], n_lists[None])
     return out, logits
 
@@ -731,5 +842,15 @@ def init_metric_states(metric_fns: Mapping[str, MetricFn],
   return states
 
 
-def metric_results(metric_states: Mapping[str, MeanState]) -> Dict[str, Tensor]:
+def metric_results(metric_states: Mapping[str, MeanState],
+                   mesh: Optional[mesh_lib.Mesh] = None) -> Dict[str, Tensor]:
+  """Each state's mean; with ``mesh``, of the states summed over the data
+  group (a collective: every rank calls it)."""
+  if mesh is not None and mesh.data_group is not None and metric_states:
+    names = list(metric_states)
+    sums = comm.all_reduce(torch.stack(
+        [torch.stack((metric_states[n].total, metric_states[n].count))
+         for n in names]), mesh.data_group)
+    metric_states = {n: MeanState(sums[i, 0], sums[i, 1])
+                     for i, n in enumerate(names)}
   return {name: s.result() for name, s in metric_states.items()}

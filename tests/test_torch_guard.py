@@ -42,7 +42,9 @@ for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
              'models.scorers', 'models.layers', 'models.groupwise',
              'utils.fns', 'utils.list_ops', 'train.sparse', 'train.state',
              'convert', 'train.steps', 'models.encoder', 'models.bert_ckpt',
-             'data.bert', 'utils.profiling'):
+             'data.bert', 'utils.profiling', 'parallel.mesh',
+             'parallel.comm', 'parallel.embedding', 'parallel.list_sharding',
+             'examples.ranking_elwc_pipeline'):
   assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
@@ -169,3 +171,16 @@ def test_the_other_scorers_and_the_dense_lazy_path_refuse_a_missing_card(
   state = state_lib.create_train_state(
       embedding_model, device='cpu', sparse_tx=sparse.LazyAdagrad(max_rows=4))
   assert state.sparse_opt_state['dropped'].device == torch.device('cpu')
+
+
+def test_distribution_refuses_a_missing_card(monkeypatch):
+  """A rank asks for the card unless told ``device='cpu'``: the process
+  group's bring-up and the CLI raise before any group exists."""
+  from ranking_tpu_torch import parallel
+  from ranking_tpu_torch.examples import ranking_elwc_pipeline as cli
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    parallel.init_distributed()
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    cli.main(['--train_pattern=unused', '--valid_pattern=unused'])
+  assert not torch.distributed.is_initialized()

@@ -338,8 +338,14 @@ def test_hparams_guards():
   with pytest.raises(ValueError, match='Unknown optimizer'):
     hparams_lib.optimizer_from_hparams(hparams_lib.PipelineHparams(
         optimizer='lamb', **base))
-  with pytest.raises(ValueError, match='mesh of one'):
-    hparams_lib.PipelineHparams(mesh_data=2, **base)
+  # A mesh larger than the ranks of the process group (none here, one
+  # rank) is refused where the pipeline lays it out.
+  from ranking_tpu_torch import parallel
+  hparams_lib.PipelineHparams(mesh_data=2, **base)
+  with pytest.raises(ValueError, match='exceeds 1 ranks'):
+    parallel.make_mesh(data=2)
+  with pytest.raises(ValueError, match='not divisible by model=2'):
+    parallel.make_mesh(model=2)
   assert hparams_lib.sparse_optimizer_from_hparams(
       hparams_lib.PipelineHparams(optimizer='lazy_adagrad', **base)
   ).learning_rate == 0.1

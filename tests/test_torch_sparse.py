@@ -185,8 +185,19 @@ def test_embedding_scorer_and_converter_equal_jax():
   _close(got.detach(), want)
   back = convert.to_flax(tmodel.state_dict())
   jax.tree.map(np.testing.assert_array_equal, back, variables)
-  with pytest.raises(NotImplementedError, match='not ported yet'):
-    scorers.EmbeddingDNNScorer((4,), {'q': 10}, mesh=object())
+  # With a mesh (here one of one rank) the tables are row-sharded
+  # encoders; on a model axis of one they hold the whole table and score
+  # as the JAX model does.
+  from ranking_tpu_torch import parallel
+  sharded = scorers.RankingModel(scorers.EmbeddingDNNScorer(
+      HIDDEN, vocab_sizes={'query_tokens': VOCAB, 'document_tokens': VOCAB},
+      embedding_dim=DIM, dropout=0.0, use_batch_norm=True,
+      mesh=parallel.make_mesh()))
+  assert isinstance(sharded.scorer.embed_query_tokens,
+                    parallel.ShardedEmbeddingEncoder)
+  sharded.load_state_dict(state)
+  sharded.eval()
+  _close(sharded(tbatch.context, tbatch.examples, tbatch.mask).detach(), want)
 
 
 # ---------------------------------------------------------- the optimizers
