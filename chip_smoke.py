@@ -5,14 +5,15 @@ path (serialized protos through the native loader, and serving requests),
 its evaluation and serving artifact (the whole metric suite, the eval
 step as a CUDA graph, query-id and TREC-run evaluation, ``export_predictor``
 / ``load_predictor``), the whole loss zoo and multi-task training, the
-other scorers, the transformer encoder family, and distribution over rank
-processes that it starts, on one CUDA card.
+other scorers, the transformer encoder family, distribution over rank
+processes that it starts, and the example programs, on one CUDA card.
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --anchor-seeds N
     python3 chip_smoke.py --scorers-only
     python3 chip_smoke.py --encoder-only
     python3 chip_smoke.py --dist-only
+    python3 chip_smoke.py --examples-only
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -303,6 +304,35 @@ Phases (any failure exits non-zero before the last line is printed):
    Times here are a correctness run's over gloo, not the card's
    collectives'.
 
+25. the example programs (``ranking_tpu_torch/examples/``), each through
+   its ``main`` as a user runs it, counts from 0: (a) ``ranking_libsvm``
+   over phase 17's LIBSVM files at 136 -> 1024-512-256, B128 x L200,
+   ``--dropout=0 --lambda_ndcg``, 20 steps and one evaluation: rows 2-4
+   3 / 1 / 2, rows 5-6 0, rows 7-8 1 / 1 and row 1 the same count each step,
+   row 1 alone in the evaluation, by the wrappers and again by
+   ``torch.profiler`` in a second run; the first step against rows 1-8
+   through their plain versions (``_hold_first_step``); the export reloaded
+   scores as the live model bitwise; ms a step by CUDA events; then 10 steps
+   each at the CLI's defaults, ``--scorer=gam`` and ``--group_size=2`` (the
+   tower unfused at dropout 0.5). (b) ``trec_eval`` over phase 19's TREC
+   files == ``trec.evaluate_run``, row 1 launched. (c) the ELWC CLI at its
+   defaults over phase 18's token records, then ``serve_predict`` over its
+   export with ``--artifact_path --quantize=int8``: the CSV's scores ==
+   ``Predictor.predict`` at phase 4's tolerance, the int8 artifact within
+   ``INT8_TOL``. (d) ``antique_din`` at its defaults and with ``--dasalc``
+   and (e) ``multitask_ranking`` at its defaults over phase 22's DIN
+   records: finite metrics, one capture a run, the graphed eval == eager
+   (``_hold_graphed_eval``), the ``task/ndcg@k`` suite. (f)
+   ``encoder_ranking`` at phase 23's BERT-base profile with ``--remat``,
+   then ``--warm_start_dir`` of its export (the warm-started model == the
+   export, bitwise) and ``--optimizer=lazy_adam`` (the dense-gradient lazy
+   update, as the JAX pipeline takes it: the position table is a lazy table
+   that no batch feature names).
+   (g) ``unbiased_two_tower`` as the JAX package's test runs it (1,500
+   queries, 400 steps, ``--list_size=15 --eta=1.5``): debiased true NDCG@5
+   above the naive one by ``EX_DEBIAS_MARGIN``. Files under
+   ``.scratch/chip_smoke_examples`` (deleted after).
+
 With ``--anchor-seeds N`` the script builds the kernels (phases 1-2) and
 then only runs phase 21a's first-step checks of every key, each with the
 float64 steps of ``_hold_first_step``'s anchor whether or not it is needed,
@@ -315,12 +345,14 @@ With ``--scorers-only`` it builds the kernels and runs only phase 22 and
 its timings, and prints (and writes to ``chiprun_out/scorers.json``) one
 ``{"scorers": ...}`` line; with ``--encoder-only`` the same for phase 23
 (``chiprun_out/encoder.json``, one ``{"encoder": ...}`` line), and with
-``--dist-only`` for phase 24 (``chiprun_out/dist.json``, ``{"dist": ...}``).
+``--dist-only`` for phase 24 (``chiprun_out/dist.json``, ``{"dist": ...}``)
+and ``--examples-only`` for phase 25 (``chiprun_out/examples.json``,
+``{"examples": ...}``).
 
 The log, its ``{"timings": ...}`` line and the ``{"kernels": [...]}`` line
 also go to ``chiprun_out/chip_smoke.log``. Prints a ``{"timings": ...}``
 line, the card line, a ``{"kernels": [...]}`` line (each kernel also with
-its launches in phases 17, 18, 21, 22, 23 and 24, as its wrapper counts them
+its launches in phases 17, 18, 21, 22, 23, 24 and 25, as its wrapper counts them
 and on the card in the profiled runs, and per replay of phase 16's
 graphs), and last ``{"ok": true, "device": {...}}``.
 """
@@ -4056,7 +4088,10 @@ def _first_step_f64(model, batch, record):
   model = copy.deepcopy(model).to('cuda', torch.float64)
   tower = model.scorer.tower
   b = steps.restore_flat_examples(batch.to('cuda'))
-  x = b.examples['features'].to(torch.float64)
+  # One float feature: the flagship batches' 'features', ranking_libsvm's
+  # 'float_features'.
+  (x,) = b.examples.values()
+  x = x.to(torch.float64)
   h = (torch.sign(x) * torch.log1p(torch.abs(x))).reshape(-1, F)
   m = b.mask.reshape(-1, 1).to(torch.float64)
   n = m.sum().clamp(min=1.0)
@@ -7042,6 +7077,493 @@ def _dist_phase():
   return out, launches
 
 
+# Phase 25: the example programs (ranking_tpu_torch/examples/) on the card,
+# each through its main() as a user runs it. (a) ranking_libsvm at the
+# flagship widths over phase 17's LIBSVM files: 20 LambdaRank steps and one
+# evaluation, then 10 steps each at the CLI's defaults, with --scorer=gam
+# and with --group_size=2.
+EX_LIBSVM_STEPS, EX_DEFAULT_STEPS = 20, 10
+# (g) unbiased_two_tower as the JAX package's test runs it
+# (tests/test_examples.py:191-196): the two-tower model's true NDCG@5 must
+# beat the naive click model's by this much.
+EX_DEBIAS_MARGIN = 0.03
+
+
+def _examples_root():
+  return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      '.scratch', 'chip_smoke_examples')
+
+
+def _examples_libsvm(root):
+  """25a: ``ranking_libsvm`` at 136 -> 1024-512-256, B128 x L200, dropout 0,
+  ``--lambda_ndcg``: 20 steps and one evaluation. Each step's launches
+  (rows 2-4 3 / 1 / 2, rows 5-6 0, rows 7-8 1 / 1, row 1 the same each
+  step) and the evaluation's (row 1 alone) by the wrappers, and the whole
+  run's again by ``torch.profiler`` in a second run; the first step
+  against the same step through the plain versions of rows 1-8
+  (``_hold_first_step``); the export reloaded into a fresh model scores the
+  validation lists as the live model, bitwise. Then 10 steps each at the
+  CLI's defaults (dropout 0.5: the tower unfused), ``--scorer=gam`` and
+  ``--group_size=2``."""
+  import copy
+  import torch
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.data import libsvm
+  from ranking_tpu_torch.examples import ranking_libsvm as cli
+  from ranking_tpu_torch.train import checkpoint
+  from ranking_tpu_torch.train import steps
+  out = {}
+  paths = {}
+  t0 = time.perf_counter()
+  for split, lists, seed in (('train', PIPE_TRAIN_LISTS, SEED + 7),
+                             ('vali', PIPE_VALID_LISTS, SEED + 8)):
+    paths[split] = os.path.join(root, f'{split}.txt')
+    libsvm.write_random_lists(paths[split], lists, F, PIPE_MIN_DOCS, L,
+                              seed=seed)
+  out['write_s'] = time.perf_counter() - t0
+  base = [f'--train_path={paths["train"]}', f'--vali_path={paths["vali"]}',
+          f'--num_features={F}']
+  flagship = base + [
+      f'--list_size={L}', f'--batch_size={B}',
+      '--hidden_layer_dims=' + ','.join(map(str, HIDDEN)), '--dropout=0',
+      '--lambda_ndcg', f'--num_train_steps={EX_LIBSVM_STEPS}',
+      f'--eval_every={EX_LIBSVM_STEPS}']
+  rec = {'per_step': [], 'events': [], 'evals': []}
+  make_train_step, evaluate = steps.make_train_step, cli.evaluate
+
+  def recording(loss_fn, **kwargs):
+    step = make_train_step(loss_fn, **kwargs)
+
+    def call(state, batch, generator=None):
+      before = _all_launch_counts()
+      if not rec['per_step']:
+        rec.update(twin=copy.deepcopy(state.model),
+                   anchor=copy.deepcopy(state.model), batch=batch,
+                   step=step, loss_fn=loss_fn)
+        with _recording_tower(state.model) as record:
+          state, metrics = step(state, batch, generator)
+        rec.update(record=record, loss=metrics['loss'].item())
+        rec['grads'], rec['stats'] = _snapshot_first_step(state)
+      else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, generator)
+        end.record()
+        rec['events'].append((start, end))
+      rec['per_step'].append([a - b for a, b in
+                              zip(_all_launch_counts(), before)])
+      return state, metrics
+    return call
+
+  def recording_evaluate(*args):
+    before = _all_launch_counts()
+    result = evaluate(*args)
+    rec['evals'].append([a - b for a, b in zip(_all_launch_counts(),
+                                               before)])
+    return result
+
+  run_dir = os.path.join(root, 'libsvm')
+  _reset_all_launches()
+  t0 = time.perf_counter()
+  with mock.patch.object(steps, 'make_train_step', recording), \
+      mock.patch.object(cli, 'evaluate', recording_evaluate):
+    result = cli.main(flagship + [f'--output_dir={run_dir}'])
+  torch.cuda.synchronize()
+  out['flagship_s'] = time.perf_counter() - t0
+  wrappers = steps.kernel_launch_counts()
+  per_step = rec['per_step']
+  eval_batches = -(-PIPE_VALID_LISTS // B)
+  sorts = per_step[0][0]
+  if (len(per_step) != EX_LIBSVM_STEPS or sorts < 1
+      or any(s != [sorts, 3, 1, 2, 0, 0, 1, 1] for s in per_step)):
+    _fail(f'25a: launches per step (sort, rows 2-6, rows 7-8) {per_step}; '
+          f'[{sorts} (the same each step), 3, 1, 2, 0, 0, 1, 1] expected')
+  if (len(rec['evals']) != 1 or any(rec['evals'][0][1:])
+      or rec['evals'][0][0] < eval_batches
+      or rec['evals'][0][0] % eval_batches):
+    _fail(f'25a: the evaluation of {eval_batches} batches launched '
+          f'{rec["evals"]} (sort, rows 2-8)')
+  ms = [s.elapsed_time(e) for s, e in rec['events']]
+  losses = result['losses']
+  vali = result['vali'][EX_LIBSVM_STEPS]
+  if not all(math.isfinite(v) for v in losses + list(vali.values())):
+    _fail(f'25a: losses {losses}, validation {vali}')
+  out.update(
+      steps=EX_LIBSVM_STEPS, first_loss=losses[0], last_loss=losses[-1],
+      vali=vali, launches=wrappers,
+      launches_per_step=dict(zip(
+          ('sorted_values_and_ranks', 'layer_forward', 'bwd_stats',
+           'bwd_mats', 'bwd_dx_only', 'bwd_dw_only', 'pairwise_sums_forward',
+           'pairwise_sums_backward'), per_step[0])),
+      sorts_per_eval_batch=rec['evals'][0][0] // eval_batches,
+      ms_per_step=statistics.median(ms), ms_per_step_range=[min(ms), max(ms)],
+      lists_per_s=B / statistics.median(ms) * 1e3)
+
+  # The first step against rows 1-8 through their plain versions, each
+  # step with the CLI's generator as it stands before every step.
+  twin, batch = rec['twin'], rec['batch']
+
+  def seeded_step(state, batch):
+    return rec['step'](state, batch, torch.Generator('cuda').manual_seed(
+        cli.STEP_SEED))
+
+  out['first_step'] = _hold_first_step(
+      '25a ranking_libsvm', seeded_step, twin, batch, rec['loss'],
+      rec['grads'], rec['stats'], plain_sort=True,
+      zero_names=_zero_in_theory(twin, True),
+      zero_tol=_zero_tol(twin, rec['loss_fn'], batch),
+      anchor=lambda r: _first_step_f64(rec['anchor'], batch, r),
+      first_record=rec['record'])
+
+  # The export, reloaded into a fresh model, scores as the live one.
+  args = cli.parse_args(flagship + ['--output_dir=unused'])
+  reloaded = cli.build_model(args)
+  reloaded.load_state_dict(checkpoint.load_params(
+      os.path.join(run_dir, 'export')), strict=True)
+  reloaded.to('cuda')
+  live = result['state'].model
+  vali_x, vali_y, _ = libsvm.load_libsvm_lists(paths['vali'], L, F)
+  with torch.no_grad():
+    for vb in dataset.in_memory_batches(vali_x, vali_y, B, shuffle=False,
+                                        drop_remainder=False):
+      vb = vb.to('cuda')
+      got = reloaded(vb.context, vb.examples, vb.mask, training=False)
+      want = live(vb.context, vb.examples, vb.mask, training=False)
+      if not torch.equal(got, want):
+        _fail('25a: the reloaded export does not score as the live model')
+  del rec['twin'], rec['anchor'], reloaded
+
+  # The same run under torch.profiler: each wrapper's kernel on the card.
+  _reset_all_launches()
+  card = _kernel_counts(lambda: cli.main(
+      flagship + [f'--output_dir={run_dir}_profiled']))
+  profiled = steps.kernel_launch_counts()
+  if profiled != wrappers:
+    _fail(f'25a: the profiled run launched {profiled}, the first {wrappers}')
+  for name, kernel in _ENTRY_KERNEL.items():
+    if wrappers[name] and card.get(kernel, 0) != wrappers[name]:
+      _fail(f'25a: {kernel} ran {card.get(kernel, 0)} times on the card; '
+            f'its wrapper {name} launched {wrappers[name]}')
+  out['launches_card'] = {n: card.get(k, 0) for n, k in _ENTRY_KERNEL.items()
+                          if wrappers[n]}
+  _log(f'25a ranking_libsvm: {EX_LIBSVM_STEPS} steps at B={B}, L={L}, '
+       f'F={F}, {HIDDEN}, dropout 0, pairwise logistic + NDCG lambda weight: '
+       f'loss {losses[0]:.4f} -> {losses[-1]:.4f}, vali {vali}; launches a '
+       f'step {out["launches_per_step"]}, {out["sorts_per_eval_batch"]} '
+       f'sorts an eval batch; card == wrappers {out["launches_card"]}; '
+       f'{out["ms_per_step"]:.3f} ms a step (eager, CUDA events, median of '
+       f'{len(ms)}), {out["lists_per_s"]:.0f} lists/s; export == live '
+       f'bitwise; run {out["flagship_s"]:.1f} s')
+
+  # At the CLI's defaults (dropout 0.5), then GAM, then groupwise.
+  for name, extra in (('defaults', []), ('gam', ['--scorer=gam']),
+                      ('groupwise', ['--group_size=2'])):
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    res = cli.main(base + [f'--num_train_steps={EX_DEFAULT_STEPS}',
+                           f'--output_dir={root}/libsvm_{name}'] + extra)
+    launched = steps.kernel_launch_counts()
+    seconds = time.perf_counter() - t0
+    if (len(res['losses']) != EX_DEFAULT_STEPS
+        or not all(math.isfinite(v) for v in res['losses'])
+        or launched['pairwise_sums_forward'] != EX_DEFAULT_STEPS
+        or launched['pairwise_sums_backward'] != EX_DEFAULT_STEPS
+        or not launched['sorted_values_and_ranks']):
+      _fail(f'25a {name}: losses {res["losses"]}, launches {launched}')
+    if any(launched[k] for k in (
+        'layer_forward', 'bwd_stats', 'bwd_mats', 'bwd_dx_only',
+        'bwd_dw_only')):
+      _fail(f'25a {name}: the unfused tower launched {launched}')
+    out[name] = {'s': seconds, 'steps': EX_DEFAULT_STEPS,
+                 'losses': [res['losses'][0], res['losses'][-1]],
+                 'vali': res['vali'][EX_DEFAULT_STEPS], 'launches': launched}
+    _log(f'25a ranking_libsvm {name}: {EX_DEFAULT_STEPS} steps, loss '
+         f'{res["losses"][0]:.4f} -> {res["losses"][-1]:.4f}, launches '
+         f'{launched}, {seconds:.1f} s')
+  return out
+
+
+def _program(name, launches, run):
+  """Runs one example program (``run`` calls its ``main``) with every
+  launch count set to 0 just before it, and reads the wrappers' counts just
+  after it, before any check or reference of the caller runs: the
+  program's own launches go to ``launches[name]``. Returns (its result,
+  its seconds)."""
+  import torch
+  from ranking_tpu_torch.train import steps
+  _reset_all_launches()
+  t0 = time.perf_counter()
+  result = run()
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches[name] = steps.kernel_launch_counts()
+  return result, seconds
+
+
+def _examples_trec(root, launches):
+  """25b: ``trec_eval`` over phase 19's TREC files (2,000 queries): its
+  JSON equals ``trec.evaluate_run`` on the card, and row 1 ran."""
+  import contextlib
+  import io
+  from ranking_tpu_torch.data import trec
+  from ranking_tpu_torch.examples import trec_eval as cli
+  qrels, run = _write_trec_files(root)
+  want = trec.evaluate_run(qrels, run, TREC_SPEC, batch_size=B,
+                           device='cuda')
+  text = io.StringIO()
+  with contextlib.redirect_stdout(text):
+    got, seconds = _program('trec_eval', launches, lambda: cli.main([
+        f'--qrels={qrels}', f'--run={run}', f'--metrics={TREC_SPEC}',
+        f'--batch_size={B}']))
+  sorts = launches['trec_eval']['sorted_values_and_ranks']
+  printed = json.loads(text.getvalue().strip().splitlines()[-1])
+  if printed != got or got != want or not sorts:
+    _fail(f'25b trec_eval: printed {printed}, returned {got}, evaluate_run '
+          f'{want}; sort launches {sorts}')
+  _log(f'25b trec_eval: {TREC_QUERIES} queries, {len(got)} metrics == '
+       f'evaluate_run; {sorts} sort launches; {seconds:.2f} s')
+  return {'s': seconds, 'queries': TREC_QUERIES, 'metrics': len(got),
+          'sort_launches': sorts}
+
+
+def _examples_serve(root, launches):
+  """25c: the ELWC CLI at its defaults over phase 18's token records, then
+  ``serve_predict`` over its export with ``--artifact_path
+  --quantize=int8``: the CSV's scores against ``Predictor.predict`` at
+  phase 4's tolerance, the int8 artifact (``load_predictor`` on the card)
+  within ``INT8_TOL`` of the largest float score."""
+  import csv
+  import numpy as np
+  from ranking_tpu_torch.data import tfrecord
+  from ranking_tpu_torch.examples import ranking_elwc_pipeline as elwc_cli
+  from ranking_tpu_torch.examples import serve_predict as cli
+  from ranking_tpu_torch.pipeline import export as export_lib
+  from ranking_tpu_torch.pipeline import serving
+  out = {}
+  train = os.path.join(root, 'tokens-train.tfrecord')
+  vali = os.path.join(root, 'tokens-vali.tfrecord')
+  tfrecord.write_records(train, _token_records(SEED + 31, TOKEN_LISTS))
+  tfrecord.write_records(vali, _token_records(SEED + 32, SPARSE_B))
+  (pipe, history), out['elwc_s'] = _program(
+      'elwc_pipeline', launches, lambda: elwc_cli.main([
+          f'--train_pattern={train}', f'--valid_pattern={vali}',
+          f'--model_dir={root}/elwc']))
+  if pipe._multi_step.captures != 1 or not all(
+      math.isfinite(v) for v in history.values()):
+    _fail(f'25c ELWC CLI: {pipe._multi_step.captures} captures, {history}')
+  export = os.path.join(root, 'elwc', 'export', 'latest')
+  artifact = os.path.join(root, 'artifact_int8')
+  scores_csv = os.path.join(root, 'scores.csv')
+  predictor, out['serve_s'] = _program(
+      'serve_predict', launches, lambda: cli.main([
+          f'--export_path={export}', f'--input={vali}',
+          f'--output={scores_csv}', f'--artifact_path={artifact}',
+          '--quantize=int8']))
+  records = tfrecord.read_all_records(vali)
+  args = cli.parse_args([f'--export_path={export}', f'--input={vali}'])
+  live = serving.Predictor.from_export(
+      cli.build_model(args), export, predictor.context_feature_spec,
+      predictor.example_feature_spec, list_size=args.list_size,
+      device='cuda').predict(records)
+  with open(scores_csv) as f:
+    rows = list(csv.reader(f))[1:]
+  got = np.array([float(r[3]) for r in rows])
+  want = np.array([live[int(r[0]), int(r[1])] for r in rows])
+  scale = float(np.abs(want).max())
+  csv_err = float(np.abs(got - want).max())
+  if len(rows) == 0 or not np.allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale):
+    _fail(f'25c serve_predict: the CSV scores differ from predict by '
+          f'{csv_err} (largest score {scale})')
+  quantized = export_lib.load_predictor(artifact, device='cuda').predict(
+      records)
+  int8 = np.array([quantized[int(r[0]), int(r[1])] for r in rows])
+  int8_err = float(np.abs(int8 - want).max())
+  if int8_err > INT8_TOL * scale:
+    _fail(f'25c serve_predict: the int8 artifact is {int8_err} off, more '
+          f'than {INT8_TOL} of the largest float score {scale}')
+  out.update(rows=len(rows), csv_max_abs_diff=csv_err,
+             int8_max_abs_diff=int8_err, largest_score=scale,
+             elwc_history=history)
+  _log(f'25c: the ELWC CLI at its defaults ({out["elwc_s"]:.1f} s), then '
+       f'serve_predict of {len(records)} lists, {len(rows)} CSV rows within '
+       f'{csv_err:.3g} of predict; int8 artifact within {int8_err:.3g} '
+       f'(largest score {scale:.3g}); {out["serve_s"]:.1f} s')
+  return out
+
+
+def _examples_pipeline(what, pipe, history, seconds, one_capture=True):
+  """Finite metrics, one capture a run (with ``one_capture``), the graphed
+  eval == eager."""
+  import itertools
+  import types
+  if (one_capture and pipe._multi_step.captures != 1) or not all(
+      math.isfinite(v) for v in history.values()):
+    _fail(f'{what}: {pipe._multi_step.captures} captures, {history}')
+  # The validation pass reads the first validation_steps batches.
+  builder = types.SimpleNamespace(valid_batches=lambda: itertools.islice(
+      pipe.dataset_builder.valid_batches(), pipe.hparams.validation_steps))
+  _hold_graphed_eval(what, pipe, builder, history)
+  return {'s': seconds, 'steps': pipe.final_state.step,
+          'captures': pipe._multi_step.captures, 'history': history,
+          'launches_per_step': dict(pipe._multi_step.captured_launches)}
+
+
+def _examples_elwc_clis(root, launches):
+  """25d-f over phase 22's DIN records: ``antique_din`` at its defaults and
+  with ``--dasalc``, ``multitask_ranking`` at its defaults, and
+  ``encoder_ranking`` at phase 23's BERT-base profile with ``--remat``,
+  then with ``--warm_start_dir`` of its own export (the warm-started model
+  equals the export bitwise) and with ``--optimizer=lazy_adam`` (the
+  dense-gradient lazy update, as in the JAX package: row 10 not
+  launched)."""
+  import torch
+  from ranking_tpu_torch.data import tfrecord
+  from ranking_tpu_torch.examples import antique_din
+  from ranking_tpu_torch.examples import encoder_ranking
+  from ranking_tpu_torch.examples import multitask_ranking
+  from ranking_tpu_torch.train import checkpoint
+  out = {}
+  for split, lists, seed in (('train', DIN_TRAIN_LISTS, SEED + 54),
+                             ('vali', DIN_VALID_LISTS, SEED + 55)):
+    tfrecord.write_records(os.path.join(root, f'din-{split}.tfrecord'),
+                           _din_records(seed, lists))
+  data = [f'--train_pattern={root}/din-train.tfrecord',
+          f'--valid_pattern={root}/din-vali.tfrecord']
+
+  for name, cli, extra in (
+      ('din', antique_din, []), ('dasalc', antique_din, ['--dasalc']),
+      ('multitask', multitask_ranking, [])):
+    (pipe, history), seconds = _program(name, launches, lambda: cli.main(
+        data + [f'--model_dir={root}/{name}'] + extra))
+    out[name] = _examples_pipeline(f'25 {name}', pipe, history, seconds)
+    if name == 'multitask' and 'relevance/ndcg@5' not in history:
+      _fail(f'25e multitask: no task/ndcg@k suite in {sorted(history)}')
+    _log(f'25 {name}: {out[name]["steps"]} steps, one capture, graphed eval '
+         f'== eager, {out[name]["s"]:.1f} s; {history}')
+    del pipe
+
+  bert = data + [f'--hidden_dim={ENC_HIDDEN}', f'--num_heads={ENC_HEADS}',
+                 f'--num_layers={ENC_LAYERS}', f'--seq_len={ENC_T}']
+  first_dir = os.path.join(root, 'encoder')
+  (pipe, history), seconds = _program(
+      'encoder', launches, lambda: encoder_ranking.main(
+          bert + ['--remat', f'--model_dir={first_dir}']))
+  out['encoder'] = _examples_pipeline('25f encoder --remat', pipe, history,
+                                      seconds, one_capture=False)
+  del pipe
+  export_dir = os.path.join(first_dir, 'export', 'latest')
+  warm = bert + [f'--warm_start_dir={export_dir}']
+  started, _ = encoder_ranking.build_model(encoder_ranking.parse_args(warm))
+  export = checkpoint.load_params(export_dir)
+  if sorted(export) != sorted(started.state_dict()) or any(
+      not torch.equal(v, export[k]) for k, v in started.state_dict().items()):
+    _fail('25f: the warm-started model is not its export')
+  del started
+  (pipe, history), seconds = _program(
+      'encoder_warm', launches, lambda: encoder_ranking.main(
+          warm + [f'--model_dir={root}/warm']))
+  out['encoder_warm'] = _examples_pipeline(
+      '25f encoder --warm_start_dir', pipe, history, seconds,
+      one_capture=False)
+  del pipe
+  (pipe, history), seconds = _program(
+      'encoder_lazy_adam', launches, lambda: encoder_ranking.main(
+          bert + ['--optimizer=lazy_adam', f'--model_dir={root}/lazy']))
+  out['encoder_lazy_adam'] = _examples_pipeline(
+      '25f encoder --optimizer=lazy_adam', pipe, history, seconds,
+      one_capture=False)
+  # The encoder's position table is a lazy table that no batch feature
+  # names, so the pipeline, as the JAX package's
+  # (ranking_tpu/pipeline/pipeline.py:335-345), takes the plain step with
+  # the dense-gradient lazy update, whose row writes are plain index copies
+  # (phase 22d): row 10 has no launch on this path.
+  state = pipe.final_state
+  lazy = out['encoder_lazy_adam']
+  lazy['lazy_count'] = int(state.sparse_opt_state['count'])
+  if (lazy['launches_per_step'].get('scatter_rows_multi', 0) != 0
+      or launches['encoder_lazy_adam']['scatter_rows_multi'] != 0
+      or lazy['lazy_count'] != state.step):
+    _fail(f'25f lazy_adam: launches a step {lazy["launches_per_step"]}, '
+          f'{lazy["lazy_count"]} lazy updates in {state.step} steps')
+  del pipe, state
+  _log(f'25f encoder_ranking at {ENC_LAYERS} x {ENC_HIDDEN}, {ENC_HEADS} '
+       f'heads, T={ENC_T}: --remat {out["encoder"]["s"]:.1f} s, warm start '
+       f'== export bitwise, {out["encoder_warm"]["s"]:.1f} s, lazy_adam '
+       f'(the dense-gradient lazy update, {lazy["lazy_count"]} updates) '
+       f'{out["encoder_lazy_adam"]["s"]:.1f} s')
+  return out
+
+
+def _examples_two_tower(launches):
+  """25g: ``unbiased_two_tower`` as the JAX package's test runs it: the
+  two-tower model debiases (true NDCG@5 above the naive click model's by
+  ``EX_DEBIAS_MARGIN``)."""
+  from ranking_tpu_torch.examples import unbiased_two_tower as cli
+  (naive, debiased), seconds = _program(
+      'unbiased_two_tower', launches, lambda: cli.main([
+          '--queries=1500', '--steps=400', '--list_size=15', '--eta=1.5']))
+  if not debiased > naive + EX_DEBIAS_MARGIN:
+    _fail(f'25g unbiased_two_tower: debiased {debiased} vs naive {naive}')
+  _log(f'25g unbiased_two_tower: true NDCG@5 naive {naive:.4f}, debiased '
+       f'{debiased:.4f}; {seconds:.1f} s for 2 x 400 steps')
+  return {'s': seconds, 'steps': 800, 'naive': naive, 'debiased': debiased}
+
+
+# The kernels each program of 25b-g must launch in its own run (row 1: the
+# sort of every metric), and serve_predict, whose path is the eval forward
+# alone, none.
+EX_PROGRAM_KERNELS = {
+    'trec_eval': ('sorted_values_and_ranks',),
+    'elwc_pipeline': ('sorted_values_and_ranks',),
+    'serve_predict': (),
+    'din': ('sorted_values_and_ranks',),
+    'dasalc': ('sorted_values_and_ranks',),
+    'multitask': ('sorted_values_and_ranks',),
+    'encoder': ('sorted_values_and_ranks',),
+    'encoder_warm': ('sorted_values_and_ranks',),
+    'encoder_lazy_adam': ('sorted_values_and_ranks',),
+    'unbiased_two_tower': ('sorted_values_and_ranks',),
+}
+
+
+def _examples_phase():
+  """Phase 25: the example programs on the card. Returns (numbers, and the
+  wrappers' launches of each program of 25b-g in its own run: program ->
+  wrapper name -> count)."""
+  import shutil
+  root = _examples_root()
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  launches = {}
+  t0 = time.perf_counter()
+  try:
+    out = {'libsvm': _examples_libsvm(root)}
+    out['trec_eval'] = _examples_trec(root, launches)
+    out['serve_predict'] = _examples_serve(root, launches)
+    out.update(_examples_elwc_clis(root, launches))
+    out['unbiased_two_tower'] = _examples_two_tower(launches)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  out['phase_s'] = time.perf_counter() - t0
+  out['card'] = _card_line()
+  if sorted(launches) != sorted(EX_PROGRAM_KERNELS):
+    _fail(f'phase 25: programs run {sorted(launches)}, expected '
+          f'{sorted(EX_PROGRAM_KERNELS)}')
+  for program, counts in launches.items():
+    must = EX_PROGRAM_KERNELS[program]
+    if any(counts[n] == 0 for n in must) or (
+        not must and any(counts.values())):
+      _fail(f'phase 25 {program}: launched {counts} in its own run; '
+            f'expected {list(must) or "none"}')
+  _log('phase 25: ' + f'{out["phase_s"]:.1f} s; launches of each program '
+       'of 25b-g in its own run: ' + '; '.join(
+           f'{p} ' + str({n: c for n, c in counts.items() if c})
+           for p, counts in launches.items()))
+  return out, launches
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -7124,6 +7646,16 @@ def main():
     line = json.dumps({'dist': numbers, 'launches': launches, 'card': card})
     os.makedirs('chiprun_out', exist_ok=True)
     with open(os.path.join('chiprun_out', 'dist.json'), 'w') as f:
+      f.write(line + '\n')
+    print(line)
+    return 0
+
+  if '--examples-only' in sys.argv[1:]:
+    numbers, launches = _examples_phase()
+    line = json.dumps({'examples': numbers, 'launches': launches,
+                       'card': card})
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'examples.json'), 'w') as f:
       f.write(line + '\n')
     print(line)
     return 0
@@ -7410,6 +7942,14 @@ def main():
       _fail(f'phase 24b: a rank never launched {name}')
   if not all(r['scatter_rows_multi'] for r in dist_launches['c']):
     _fail('phase 24c: a rank never launched scatter_rows_multi')
+  # Phase 25: the example programs; 25a's flagship run and each program
+  # of 25b-g count from 0.
+  examples_numbers, examples_launches = _examples_phase()
+  examples_libsvm = examples_numbers['libsvm']
+  for name in ('sorted_values_and_ranks', 'layer_forward', 'bwd_stats',
+               'bwd_mats', 'pairwise_sums_forward', 'pairwise_sums_backward'):
+    if examples_libsvm['launches'][name] == 0:
+      _fail(f'phase 25a: ranking_libsvm never launched {name}')
   scorer_per_step = {
       'gam': scorer_numbers['gam']['graph']['launches_per_step'],
       'groupwise': scorer_numbers['groupwise']['graph']['launches_per_step'],
@@ -7433,7 +7973,8 @@ def main():
       'eval_forward_ms': forward_ms, 'serve_b128_ms': serve_ms,
       'kstep': kstep, 'pipeline': pipeline_numbers, 'elwc': elwc_numbers,
       'eval': eval_numbers, 'zoo': zoo_numbers, 'scorers': scorer_numbers,
-      'encoder': encoder_numbers, 'dist': dist_numbers, 'card': card}
+      'encoder': encoder_numbers, 'dist': dist_numbers,
+      'examples': examples_numbers, 'card': card}
   _log(json.dumps({'timings': timings}))
 
   if '--profile' in sys.argv[1:]:
@@ -7600,6 +8141,18 @@ def main():
         k: ([r[entry['name']] for r in v] if isinstance(v, list)
             else v.get(entry['name'], 0))
         for k, v in dist_launches.items()}
+    # Phase 25: the wrappers' count in 25a's flagship ranking_libsvm run
+    # (20 steps and one evaluation), a step of it, and on the card by
+    # torch.profiler in its second run; and each program of 25b-g in its
+    # own run.
+    entry['launches_examples_libsvm'] = examples_libsvm['launches'][
+        entry['name']]
+    entry['launches_examples_libsvm_per_step'] = examples_libsvm[
+        'launches_per_step'].get(entry['name'], 0)
+    entry['launches_examples_libsvm_card'] = examples_libsvm[
+        'launches_card'].get(entry['name'], 0)
+    entry['launches_examples_programs'] = {
+        p: c[entry['name']] for p, c in examples_launches.items()}
   # Row 10 at the encoder's token table, [30522, 768] x 3, the sparse
   # step's own ids.
   kernels[-1].update({f'encoder_{k}': v for k, v in

@@ -53,6 +53,25 @@ The other scorers and layers:
   the port's encoder keeps flax's names and layouts, so each path maps to
   the name with '.' for '/', the leaf as it is.
 
+The example programs' own modules hold one of these scorers a level down;
+its flax tree is read as a ``RankingModel``'s ``scorer`` and its names
+move under the module's prefix (``_NESTED``), and the embedding tables
+beside it (flax ``<path>/embedding``) keep their paths, '.' for '/':
+
+* ``examples/ranking_libsvm.py``'s ``SplitGAM``:
+  ``scorer/GAMScorer_0/GAMLayer_0/example_tower_i`` ->
+  ``scorer.gam_scorer.gam.example_tower_i.`` (a tower a LIBSVM column,
+  ``col_000``... in order);
+* ``examples/antique_din.py``'s ``Scorer``: ``scorer/DINScorer_0/...`` ->
+  ``scorer.din.`` + the ``DINScorer``'s names, and the tables
+  ``scorer/embed_q/embedding``, ``scorer/embed_d/embedding``;
+* ``examples/unbiased_two_tower.py``'s ``TwoTower`` (the model itself, no
+  ``RankingModel``): ``relevance/Tower_0`` -> ``relevance.tower.`` and
+  ``position_bias/embedding`` -> ``position_bias.embedding``.
+
+``examples/encoder_ranking.py``'s model is a ``RankingModel`` over an
+``EncoderScorer``, above.
+
 ``from_flax_sharded`` gives one rank's shards of the same, for a model
 laid out over a ``parallel`` mesh.
 
@@ -89,6 +108,15 @@ _ATTENTION = ('scorer', 'DocumentInteractionAttention_0')
 _ATTENTION_PREFIX = 'scorer.attention.'
 _MHA_PARTS = ('query', 'key', 'value', 'out')
 _BILINEAR = ('bilinear_kernel', 'bias')
+# (flax path of a scorer held a level down, the port's prefix of its
+# parameters): the example programs' SplitGAM, DIN scorer and TwoTower.
+_NESTED = (
+    (('scorer', 'GAMScorer_0'), 'scorer.gam_scorer.'),
+    (('scorer', 'DINScorer_0'), 'scorer.din.'),
+    (('relevance',), 'relevance.'),
+)
+# A table beside a nested scorer: '<path>.embedding'.
+_SIDE_TABLE = re.compile(r'[A-Za-z0-9_]+(\.[A-Za-z0-9_]+)*\.embedding')
 # The encoder family's flax paths, which are the port's names.
 _ENCODER = re.compile(
     r'(scorer\.(encoder|score)\.|(token_embed|pos_embed|type_embed'
@@ -124,6 +152,10 @@ def from_flax(variables: Mapping[str, Any],
   stats = variables.get('batch_stats', {})
   if set(params) == set(_BILINEAR):
     return OrderedDict((name, _tensor(params[name])) for name in _BILINEAR)
+  for path, prefix in _NESTED:
+    inner = _at(params, path)
+    if inner is not None:
+      return _from_nested(params, stats, path, prefix, input_batch_norm)
   if 'token_embed' in params or _at(params, ('scorer', 'encoder')) is not None:
     return OrderedDict((name, _tensor(leaf))
                        for name, leaf in _dotted_leaves(params))
@@ -165,6 +197,27 @@ def from_flax(variables: Mapping[str, Any],
         for leaf in ('kernel', 'bias'):
           state[f'{_ATTENTION_PREFIX}attentions.{i}.{part}.{leaf}'] = \
               _tensor(mha[part][leaf])
+  return state
+
+
+def _from_nested(params, stats, path, prefix: str, input_batch_norm: bool
+                 ) -> 'OrderedDict[str, torch.Tensor]':
+  """``from_flax`` of a model holding its scorer at ``path``: that
+  scorer's tree read as a ``RankingModel``'s, its names under ``prefix``,
+  and the embedding tables beside it."""
+  inner = from_flax({'params': {'scorer': _at(params, path)},
+                     'batch_stats': {'scorer': _at(stats, path) or {}}},
+                    input_batch_norm=input_batch_norm)
+  state = OrderedDict((prefix + name[len('scorer.'):], leaf)
+                      for name, leaf in inner.items())
+  nested = '.'.join(path) + '.'
+  for name, leaf in _dotted_leaves(params):
+    if name.startswith(nested):
+      continue
+    if not _SIDE_TABLE.fullmatch(name):
+      raise ValueError(f'{name!r} beside the scorer at {"/".join(path)} is '
+                       'not an embedding table')
+    state[name] = _tensor(leaf)
   return state
 
 
@@ -230,6 +283,22 @@ def to_flax(named: Mapping[str, torch.Tensor],
   are left out of the tree; ``num_batches_tracked`` has no flax
   counterpart.
   """
+  for path, prefix in _NESTED:
+    inner = {'scorer.' + name[len(prefix):]: tensor
+             for name, tensor in named.items() if name.startswith(prefix)}
+    if inner:
+      tree: Dict[str, Any] = {}
+      for name, tensor in named.items():
+        if name.startswith(prefix):
+          continue
+        if not _SIDE_TABLE.fullmatch(name):
+          raise ValueError(f'{name!r} beside the scorer at '
+                           f'{"/".join(path)} is not an embedding table')
+        _put(tree, ('params',) + tuple(name.split('.')),
+             tensor.detach().to('cpu', torch.float32).numpy())
+      for collection, node in to_flax(inner, input_batch_norm).items():
+        _put(tree, (collection,) + path, node['scorer'])
+      return tree
   tree: Dict[str, Any] = {}
   leaves = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
             'running_mean': ('batch_stats', 'mean'),

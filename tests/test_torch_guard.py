@@ -44,7 +44,10 @@ for name in ('pipeline.pipeline', 'pipeline.hparams', 'train.checkpoint',
              'convert', 'train.steps', 'models.encoder', 'models.bert_ckpt',
              'data.bert', 'utils.profiling', 'parallel.mesh',
              'parallel.comm', 'parallel.embedding', 'parallel.list_sharding',
-             'examples.ranking_elwc_pipeline'):
+             'examples.ranking_elwc_pipeline', 'examples.ranking_libsvm',
+             'examples.antique_din', 'examples.encoder_ranking',
+             'examples.multitask_ranking', 'examples.serve_predict',
+             'examples.trec_eval', 'examples.unbiased_two_tower'):
   assert 'ranking_tpu_torch.' + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
@@ -184,3 +187,23 @@ def test_distribution_refuses_a_missing_card(monkeypatch):
   with pytest.raises(RuntimeError, match="device='cpu'"):
     cli.main(['--train_pattern=unused', '--valid_pattern=unused'])
   assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize('name, argv', [
+    ('trec_eval', ['--qrels=q', '--run=r']),
+    ('ranking_libsvm', ['--train_path=t', '--vali_path=v']),
+    ('unbiased_two_tower', []),
+    ('serve_predict', ['--export_path=e', '--input=i']),
+    ('multitask_ranking', ['--train_pattern=t', '--valid_pattern=v']),
+    ('antique_din', ['--train_pattern=t', '--valid_pattern=v']),
+    ('encoder_ranking', ['--train_pattern=t', '--valid_pattern=v']),
+    ('ranking_elwc_pipeline', ['--train_pattern=t', '--valid_pattern=v'])])
+def test_example_programs_refuse_a_missing_card(monkeypatch, name, argv):
+  """Each program runs on the card by default (``--device=cuda``) and
+  raises, before it reads a file, where there is none."""
+  import importlib
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  cli = importlib.import_module(f'ranking_tpu_torch.examples.{name}')
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    cli.main(argv)
+
