@@ -36,31 +36,43 @@ def _records_stream(paths: List[str], epochs: Optional[int],
                     interleave_files: int = 1) -> Iterator[bytes]:
   """File walk with an optional cycle interleave: up to
   ``interleave_files`` readers are open at once and records round-robin
-  across them (the list_files -> interleave of python/data.py:941-960)."""
+  across them (the list_files -> interleave of python/data.py:941-960).
+  A pass that yields no record raises ``ValueError`` when more passes are
+  asked for, where it would otherwise repeat forever."""
   epoch = 0
   while epochs is None or epoch < epochs:
     order = list(paths)
     if shuffle_files:
       rng.shuffle(order)
-    if interleave_files <= 1:
-      for p in order:
-        yield from tfrecord.read_records(p)
-    else:
-      pending = list(order)
-      readers: List[Iterator[bytes]] = []
-      while pending or readers:
-        while pending and len(readers) < interleave_files:
-          readers.append(tfrecord.read_records(pending.pop(0)))
-        i = 0
-        while i < len(readers):
-          try:
-            yield next(readers[i])
-            i += 1
-          except StopIteration:
-            readers.pop(i)
-            if pending:
-              readers.append(tfrecord.read_records(pending.pop(0)))
+    empty = True
+    for record in _one_pass(order, interleave_files):
+      empty = False
+      yield record
     epoch += 1
+    if empty and (epochs is None or epoch < epochs):
+      raise ValueError(f'{paths} hold no record: a repeated stream over '
+                       'them would never yield one')
+
+
+def _one_pass(order: List[str], interleave_files: int) -> Iterator[bytes]:
+  if interleave_files <= 1:
+    for p in order:
+      yield from tfrecord.read_records(p)
+    return
+  pending = list(order)
+  readers: List[Iterator[bytes]] = []
+  while pending or readers:
+    while pending and len(readers) < interleave_files:
+      readers.append(tfrecord.read_records(pending.pop(0)))
+    i = 0
+    while i < len(readers):
+      try:
+        yield next(readers[i])
+        i += 1
+      except StopIteration:
+        readers.pop(i)
+        if pending:
+          readers.append(tfrecord.read_records(pending.pop(0)))
 
 
 def _shuffled(stream: Iterator[bytes], buffer_size: int,
@@ -352,16 +364,21 @@ def in_memory_batches(
 
   The order comes from ``np.random.RandomState(seed)`` as in the JAX
   package, so that both packages see the same batches in the same order.
+  A pass that yields no batch (no lists, or fewer than ``batch_size``
+  under ``drop_remainder``) raises ``ValueError`` when more passes are
+  asked for, where it would otherwise repeat forever.
   """
   n = features.shape[0]
   rng = np.random.RandomState(seed)
   epoch = 0
   while epochs is None or epoch < epochs:
     order = rng.permutation(n) if shuffle else np.arange(n)
+    empty = True
     for start in range(0, n, batch_size):
       idx = order[start:start + batch_size]
       if len(idx) < batch_size and drop_remainder:
         break
+      empty = False
       lab = torch.from_numpy(labels[idx])
       yield RankingBatch(
           context={},
@@ -369,6 +386,10 @@ def in_memory_batches(
           labels=lab,
           mask=lab >= 0)
     epoch += 1
+    if empty and (epochs is None or epoch < epochs):
+      raise ValueError(
+          f'{n} lists make no batch of {batch_size} with drop_remainder='
+          f'{drop_remainder}: a repeated stream would never yield one')
 
 
 def flatten_examples(batch: RankingBatch) -> RankingBatch:

@@ -564,6 +564,7 @@ class NativeLoader:
     fmt = _loader_format(data_format)
     lib = load()
     self._lib = lib
+    self.paths = list(paths)
     self.batch_size = batch_size
     self.list_size = list_size
     self.context_spec = dict(context_spec)
@@ -637,11 +638,12 @@ class NativeLoader:
         raise ValueError('dataset cache: a decoded record could not be '
                          'written to the spill (disk full?)')
       raise ValueError(
-          'native loader stream error: a record failed to decode (the '
-          'data is corrupt; the one-shot parser raises for the same '
-          'input) or an input file is unreadable or does not end at a '
-          'record boundary; training on the partial corpus would be '
-          'silent data loss')
+          f'native loader stream error over {self.paths}: a record failed '
+          'to decode (the data is corrupt; the one-shot parser raises for '
+          'the same input), an input file is unreadable or does not end at '
+          'a record boundary (training on the partial corpus would be '
+          'silent data loss), or an epoch held no record while more were '
+          'asked for (the stream would never yield one)')
     if n == 0:
       self._ended = True
       self.close()  # releases the threads and the cache's lock

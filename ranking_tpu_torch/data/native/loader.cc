@@ -944,7 +944,9 @@ void read_loop(Loader* L) {
     }
   };
 
+  int64_t offered = 0;  // records offered by the current epoch
   auto offer = [&](RecordRef&& rec) {
+    ++offered;
     if (!L->shuffle || L->shuffle_buffer <= 1) {
       emit(std::move(rec));
       return;
@@ -965,6 +967,7 @@ void read_loop(Loader* L) {
     // Shuffle path INDICES (not strings): identical rng consumption —
     // std::shuffle draws depend only on the element count — and the
     // index keys the cache's canonical per-file spans.
+    offered = 0;
     std::vector<size_t> order(L->paths.size());
     for (size_t i = 0; i < order.size(); ++i) order[i] = i;
     if (L->shuffle)
@@ -1014,6 +1017,14 @@ void read_loop(Loader* L) {
       }
       for (int64_t i = 0; i < n && !L->stop; ++i)
         offer(RecordRef{buf, buf->data + offs[i], lens[i]});
+    }
+    // An epoch that offered no record would repeat forever without one:
+    // with more epochs to go, that is a stream error (rt_loader_wait
+    // returns -1 and Python raises).
+    if (offered == 0 && !L->stop &&
+        (L->epochs <= 0 || epoch + 1 < L->epochs)) {
+      signal_error(L);
+      break;
     }
   }
   if (!L->stop) {

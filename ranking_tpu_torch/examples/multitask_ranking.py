@@ -48,7 +48,8 @@ def add_click_labels(src_pattern: str, out_path: str, seed: int = 11) -> str:
   relevant documents are clicked w.p. 0.7, irrelevant never (the click
   simulation of the unbiased-LTR literature, kept deliberately simple).
   The records are decoded and written again with the port's wire-format
-  code (``data/proto.py``); a feature without a value list is left out."""
+  code (``data/proto.py``); a feature without a value list is left out.
+  A pattern that matches no file raises ``FileNotFoundError``."""
   import numpy as np
 
   from ranking_tpu_torch.data import proto, tfrecord
@@ -56,9 +57,12 @@ def add_click_labels(src_pattern: str, out_path: str, seed: int = 11) -> str:
   def values(features):
     return {name: list(f.values) for name, f in features.items()}
 
+  paths = sorted(glob.glob(src_pattern))
+  if not paths:
+    raise FileNotFoundError(f'No files match {src_pattern!r}')
   rng = np.random.RandomState(seed)
   out = []
-  for path in sorted(glob.glob(src_pattern)):
+  for path in paths:
     for rec in tfrecord.read_records(path):
       context, examples = proto.decode_elwc(rec)
       docs = []

@@ -136,6 +136,26 @@ def test_feed_gives_the_jax_batch_sequence(tmp_path, shuffle):
     batch_lib.stack_numpy_batches([])
 
 
+@pytest.mark.parametrize('lists', [0, 3])
+def test_a_repeated_feed_that_makes_no_batch_raises(lists):
+  """0 lists, or 3 lists under batches of 4 dropping the remainder, make
+  no batch: one epoch is an empty stream, and more raise at once instead
+  of looking for a batch forever."""
+  features = np.zeros((lists, 5, 2), np.float32)
+  labels = np.zeros((lists, 5), np.float32)
+  assert list(dataset.in_memory_batches(features, labels, 4)) == []
+  for epochs in (None, 2):
+    batches = dataset.in_memory_batches(features, labels, 4, epochs=epochs)
+    start = time.monotonic()
+    with pytest.raises(ValueError, match=f'{lists} lists'):
+      next(batches)
+    assert time.monotonic() - start < 1
+  if lists:  # the remainder kept is a batch: the stream repeats it
+    kept = dataset.in_memory_batches(features, labels, 4, epochs=None,
+                                     drop_remainder=False)
+    assert [next(kept).labels.shape[0] for _ in range(3)] == [lists] * 3
+
+
 def test_tfrecord_writer_writes_the_jax_bytes(tmp_path):
   rng = np.random.RandomState(3)
   records = [rng.bytes(n) for n in (0, 1, 7, 300, 5000)]

@@ -11,6 +11,7 @@ first, and a corrupt, truncated or unreadable file must raise.
 
 import glob
 import os
+import time
 
 import numpy as np
 import pytest
@@ -228,3 +229,28 @@ def test_corrupt_truncated_and_unreadable_files_raise(tmp_path):
                                shuffle=False, epochs=1)
   with pytest.raises(ValueError, match='unreadable'):
     list(loader)
+
+
+@pytest.mark.parametrize('engine', ['python', 'native'])
+def test_a_repeated_stream_over_no_record_raises(tmp_path, engine):
+  """Over a file with no record, one epoch is an empty stream, and more
+  raise at once instead of looking for a record forever."""
+  empty = tmp_path / 'empty.tfrecord'
+  empty.write_bytes(b'')
+
+  def stream(epochs):
+    if engine == 'python':
+      return dataset.build_ranking_dataset(
+          str(empty), 'example_list_with_context', 2, {}, _REL, list_size=4,
+          shuffle=False, epochs=epochs)
+    return dataset.native_ranking_dataset(
+        str(empty), 2, context_feature_spec={}, example_feature_spec=_REL,
+        list_size=4, shuffle=False, epochs=epochs)
+
+  assert list(stream(1)) == []
+  for epochs in (None, 3):
+    batches = stream(epochs)
+    start = time.monotonic()
+    with pytest.raises(ValueError, match='empty.tfrecord'):
+      next(batches)
+    assert time.monotonic() - start < 1

@@ -16,6 +16,7 @@ CLI's ``main`` runs a short training of its own and prints the
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from ranking_tpu_torch.data import parsers
@@ -94,3 +95,10 @@ def test_multitask_cli_holds_the_jax_cli(tmp_path, monkeypatch, capsys):
   model = cli.build_model(cli.parse_args(argv))
   torch_cli_cases.hold_eval_forward(jpipe.model, model, parsed.context,
                                     examples, parsed.mask)
+
+
+def test_add_click_labels_raises_on_a_pattern_that_matches_nothing(tmp_path):
+  with pytest.raises(FileNotFoundError, match='nothing-here'):
+    cli.add_click_labels(str(tmp_path / 'nothing-here*.tfrecord'),
+                         str(tmp_path / 'out.tfrecord'))
+  assert not os.path.exists(tmp_path / 'out.tfrecord')
