@@ -18,11 +18,12 @@ processes that it starts, and the example programs, on one CUDA card.
 Phases (any failure exits non-zero before the last line is printed):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the five kernel sources of
+2. build: compiles the six kernel sources of
    ``ranking_tpu_torch/ops/cuda/csrc`` side by side (the sort, the fused
    masked-BN tower's forward and its backward, the fused pairwise sums, the
-   row scatter); prints the HGMMA (``wgmma``) instructions of the two fused
-   tower libraries, which must not be 0, and their registers and spills;
+   row scatter, the encoder's dense products); prints the HGMMA (``wgmma``)
+   instructions of the two fused tower libraries and the dense one, which
+   must not be 0, and their registers and spills;
 3. kernel vs plain: the CUDA sort against ``sorted_values_and_ranks_reference``
    on the card, required bitwise equal (ranks and sorted values), at the
    flagship shape (B=128, L=200, K=2, topn 1/5/10/200), with score ties,
@@ -277,7 +278,13 @@ Phases (any failure exits non-zero before the last line is printed):
    float32 and int8, served on the card: float32 == the live
    ``Predictor.predict`` at phase 4's tolerance, int8 within ``INT8_TOL``;
    (f) ``warm_start_from`` of a second seed's flax-path parameters,
-   overlaid bitwise, and ``strict=True`` refusing an unused entry.
+   overlaid bitwise, and ``strict=True`` refusing an unused entry; (g) the
+   dense kernel (``csrc/dense.cu``, row 11): its launches in a train step
+   (18 a layer) and the share of the blocks' dense FLOPs it did (all), then
+   at BERT-base's train shapes (forward, input and weight gradients) and
+   serving's 16,384 rows its error against float64 beside cuBLAS float32's
+   and its device ms beside its bound, the plain version's and
+   ``torch.mm``'s, and the routing rule's sweep over rows.
 
 24. distribution (``parallel/``), each sub-phase from counts of 0: (a) a
    world of one over NCCL in this process at the flagship: the distributed
@@ -953,7 +960,8 @@ def _reset_all_launches():
   from ranking_tpu_torch.ops.cuda import pairwise
   from ranking_tpu_torch.ops.cuda import rows
   from ranking_tpu_torch.ops.cuda import sort as cuda_sort
-  for module in (fused_bn, pairwise, rows):
+  from ranking_tpu_torch.ops.cuda import dense
+  for module in (fused_bn, pairwise, rows, dense):
     module.reset_launches()
   cuda_sort.sorted_values_and_ranks.launches = 0
 
@@ -2379,7 +2387,8 @@ _PORT_KERNELS = ('rank_sort_kernel', 'layer_forward_kernel',
                  'split_weight_kernel', 'reduce_partials_kernel',
                  'bwd_stats_kernel', 'bwd_dx_kernel', 'over_rows_kernel',
                  'pairwise_fwd_kernel', 'pairwise_finalize_kernel',
-                 'pairwise_bwd_kernel', 'scatter_rows_kernel')
+                 'pairwise_bwd_kernel', 'scatter_rows_kernel', 'dense_kernel',
+                 'dense_split_kernel', 'dense_reduce_kernel')
 
 
 def _kstep_recipes(gen):
@@ -2625,7 +2634,7 @@ _ENTRY_KERNEL = {
     'pairwise_sums_forward': 'pairwise_fwd_kernel',
     'pairwise_sums_backward': 'pairwise_bwd_kernel',
     'scatter_rows': 'scatter_rows_kernel',
-    'scatter_rows_multi': 'scatter_rows_kernel'}
+    'scatter_rows_multi': 'scatter_rows_kernel', 'dense_gemm': 'dense_kernel'}
 
 
 class _TimedDispatches:
@@ -5884,8 +5893,9 @@ def _encoder_sparse(pristine, batches, loss_fn):
   """23c: the sparse token step against the dense-gradient lazy step
   (``make_train_step`` on the same LazyAdam), one step at dropout 0.1 with
   equal generators: loss, dense gradients, tables and moments within
-  SPARSE_TOL; rows no id touched keep their bits; row 10 once a step, no
-  other launch; then row 10 against its plain version bitwise on the
+  SPARSE_TOL; rows no id touched keep their bits; row 10 once a step and
+  the dense kernel 18 times a layer in either step, no other launch; then
+  row 10 against its plain version bitwise on the
   step's own ids at [30522, 768], n = 3, and timed. Returns (numbers, the
   step's LazyAdam, the EmbedFeatures)."""
   import torch
@@ -5929,7 +5939,9 @@ def _encoder_sparse(pristine, batches, loss_fn):
   torch.cuda.synchronize()
   launched = [{n: b[n] - a[n] for n in a if b[n] != a[n]}
               for a, b in zip(counts, counts[1:])]
-  if launched != [{}, {'scatter_rows_multi': 1}]:
+  dense_launches = {'dense_gemm': 18 * ENC_LAYERS}
+  if launched != [dense_launches,
+                  {'scatter_rows_multi': 1, **dense_launches}]:
     _fail(f'encoder sparse: launches of the dense lazy step and the sparse '
           f'step {launched}')
   loss_err = abs(dm['loss'].item() - sm['loss'].item()) / abs(
@@ -6169,6 +6181,147 @@ def _encoder_warm_start(pristine):
   return {'overlaid': len(moved)}
 
 
+# 23g: the encoder's dense products (csrc/dense.cu, row 11): BERT-base's
+# train shapes (4,096 rows; 768 in and out, 768 -> 3,072, 3,072 -> 768),
+# each as forward, input gradient and weight gradient, then the forward at
+# serving's 16,384 rows (the 128-document bucket of `tfr_bert.serve_rerank`:
+# 128 candidates of 128 tokens); the routing rule's sweep over rows at
+# 768 -> 768.
+DENSE_TRAIN = ((4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768))
+DENSE_SERVE_ROWS = 16384
+DENSE_SWEEP_ROWS = (64, 128, 256, 512, 1024, 2048, 4096)
+DENSE_OPS_PER_S = 165e12          # three TF32 passes at 495 TFLOP/s
+
+
+def _dense_step_share(run_step):
+  """One eager train step of phase 23's encoder: the dense kernel's
+  launches, and the share of the encoder blocks' dense FLOPs (6 products a
+  layer, forward and two gradients) that went through it."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import dense
+  launches, flops = dense.dense_gemm.launches, dense.dense_gemm.flops
+  run_step()
+  torch.cuda.synchronize()
+  rows = ENC_B * ENC_L * ENC_T
+  block = 3 * 2 * rows * ENC_LAYERS * (4 * ENC_HIDDEN ** 2
+                                       + 2 * ENC_HIDDEN * ENC_MLP)
+  out = {'launches': dense.dense_gemm.launches - launches,
+         'flops': dense.dense_gemm.flops - flops, 'block_flops': block}
+  out['share'] = out['flops'] / block
+  if out['launches'] != 18 * ENC_LAYERS or out['flops'] != block:
+    _fail(f'23g: a train step launched the dense kernel {out["launches"]} '
+          f'times ({18 * ENC_LAYERS} expected), {out["share"]:.4%} of the '
+          'block products\' FLOPs')
+  _log(f'23g: a train step: {out["launches"]} dense kernel launches, '
+       f'{out["share"]:.2%} of the encoder blocks\' dense FLOPs '
+       f'({out["flops"] / 1e12:.4f} TFLOP) through the kernel')
+  return out
+
+
+def _dense_case(kind, rows, kin, nout, gen):
+  """(kernel, kernel without its split pass, plain, torch.mm) closures and
+  the product's (m, n, k) for one of 23g's products."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import dense
+  x = torch.randn(rows, kin, device='cuda', generator=gen)
+  w = torch.randn(kin, nout, device='cuda', generator=gen) * kin ** -0.5
+  b = torch.randn(nout, device='cuda', generator=gen)
+  dy = torch.randn(rows, nout, device='cuda', generator=gen)
+  if kind == 'forward':
+    m, n, k = rows, nout, kin
+    planes, out = dense.split_planes(w, True), torch.empty(m, n, device='cuda')
+    return (lambda: dense._forward(x, w, b),
+            lambda: dense.dense_gemm(x, False, planes, b, out, False, m, n, k),
+            lambda: dense.dense_reference(x, w, b),
+            lambda: torch.addmm(b, x, w),
+            lambda: torch.addmm(b.double(), x.double(), w.double()),
+            (m, n, k))
+  if kind == 'input_grad':
+    m, n, k = rows, kin, nout
+    planes, out = dense.split_planes(w, False), torch.empty(m, n,
+                                                            device='cuda')
+    return (lambda: dense._input_grad(dy, w),
+            lambda: dense.dense_gemm(dy, False, planes, None, out, False,
+                                     m, n, k),
+            lambda: dy @ w.t(), lambda: torch.mm(dy, w.t()),
+            lambda: dy.double() @ w.double().t(), (m, n, k))
+  m, n, k = kin, nout, rows
+  out = torch.empty(kin, nout, device='cuda')
+  if nout <= kin:
+    planes = dense.split_planes(dy, True)
+    gemm = lambda: dense.dense_gemm(x, True, planes, None, out, False,
+                                    kin, nout, rows)
+  else:
+    planes = dense.split_planes(x, True)
+    gemm = lambda: dense.dense_gemm(dy, True, planes, None, out, True,
+                                    nout, kin, rows)
+  return (lambda: dense._weight_grad(x, dy), gemm, lambda: x.t() @ dy,
+          lambda: torch.mm(x.t(), dy),
+          lambda: x.double().t() @ dy.double(), (m, n, k))
+
+
+def _dense_phase():
+  """23g: each product's largest error against float64 over its largest
+  output, beside cuBLAS float32's; its device ms by graph replays (the
+  kernel with its split pass, the kernel alone, the plain version,
+  ``torch.mm``) against the three-pass bound; then the crossover sweep:
+  kernel and ``torch.mm`` by graph replays and eagerly (host included) at
+  768 -> 768 over DENSE_SWEEP_ROWS rows."""
+  import torch
+  from ranking_tpu_torch.ops.cuda import dense
+  gen = torch.Generator(device='cuda').manual_seed(SEED + 78)
+  cases = [(kind, r, i, o) for r, i, o in DENSE_TRAIN
+           for kind in ('forward', 'input_grad', 'weight_grad')]
+  cases += [('forward', DENSE_SERVE_ROWS, i, o) for _, i, o in DENSE_TRAIN]
+  out = {'products': []}
+  for kind, rows, kin, nout in cases:
+    kernel, gemm, plain, lib, f64, (m, n, k) = _dense_case(kind, rows, kin,
+                                                          nout, gen)
+    want = f64()
+    scale = want.abs().max()
+    err = ((kernel().double() - want).abs().max() / scale).item()
+    err_lib = ((lib().double() - want).abs().max() / scale).item()
+    del want
+    if err > 2.0 ** -19:
+      _fail(f'23g: {kind} {rows}x{kin}x{nout}: error {err:.3g} of the '
+            f'largest output (cuBLAS float32 {err_lib:.3g})')
+    ms = {name: _graph_ms(fn) for name, fn in (
+        ('kernel', kernel), ('gemm', gemm), ('plain', plain), ('mm', lib))}
+    bound = 2 * m * n * k / DENSE_OPS_PER_S * 1e3
+    row = {'kind': kind, 'rows': rows, 'in': kin, 'out': nout,
+           'mnk': (m, n, k), 'plan': dense.plan(m, n, k, torch.cuda.
+                                               get_device_properties(0).
+                                               multi_processor_count),
+           'err': err, 'err_mm': err_lib, 'bound_ms': bound,
+           'pct_of_bound': 100 * bound / ms['gemm'],
+           **{f'{name}_ms': v for name, v in ms.items()}}
+    out['products'].append(row)
+    _log(f'23g: {kind} {rows}x{kin}->{nout} (m n k {m} {n} {k}, plan '
+         f'{row["plan"]}): kernel {ms["kernel"]:.4f} ms with its split, '
+         f'{ms["gemm"]:.4f} alone ({row["pct_of_bound"]:.1f}% of the '
+         f'{bound:.4f} ms bound), plain {ms["plain"]:.4f}, torch.mm '
+         f'{ms["mm"]:.4f}; error {err:.3g} (cuBLAS {err_lib:.3g})')
+    if ms['kernel'] >= ms['mm'] and rows == 4096:
+      _fail(f'23g: {kind} {rows}x{kin}x{nout}: the kernel '
+            f'({ms["kernel"]:.4f} ms) is no faster than torch.mm '
+            f'({ms["mm"]:.4f})')
+  out['sweep'] = []
+  for rows in DENSE_SWEEP_ROWS:
+    kernel, _, _, lib, _, mnk = _dense_case('forward', rows, 768, 768, gen)
+    row = {'rows': rows, 'kernel_ms': _graph_ms(kernel),
+           'mm_ms': _graph_ms(lib),
+           'kernel_eager_ms': _event_ms(kernel, 20),
+           'mm_eager_ms': _event_ms(lib, 20),
+           'takes': dense.takes('cuda', torch.float32, rows, 768, 768)}
+    out['sweep'].append(row)
+    _log(f'23g: sweep {rows} x 768 -> 768: kernel {row["kernel_ms"]:.4f} ms '
+         f'(eager {row["kernel_eager_ms"]:.4f}), torch.mm '
+         f'{row["mm_ms"]:.4f} (eager {row["mm_eager_ms"]:.4f}); the rule '
+         f'takes it: {row["takes"]}')
+  torch.cuda.empty_cache()
+  return out
+
+
 def _encoder_phase():
   """Phase 23: the transformer encoder family at BERT-base widths. Returns
   (numbers, launches a step of each graphed path)."""
@@ -6193,7 +6346,7 @@ def _encoder_phase():
   out['graph'] = _graph_vs_eager_22(
       'encoder step', lambda: state_lib.create_train_state(
           _encoder_copy(pristine), state_lib.adam(ENC_LR), device='cuda'),
-      step, batches, True, {})
+      step, batches, True, {'dense_gemm': 18 * ENC_LAYERS})
   if not out['graph']['bitwise']:
     _fail('encoder step: two eager runs differ, so graph == eager is not '
           'bitwise')
@@ -6203,6 +6356,7 @@ def _encoder_phase():
   state = state_lib.create_train_state(
       _encoder_copy(pristine), state_lib.adam(ENC_LR), device='cuda')
   rng = torch.Generator(device='cuda').manual_seed(SEED + 77)
+  out['dense_step'] = _dense_step_share(lambda: step(state, batches[0], rng))
   prof = _profile(lambda: step(state, batches[0], rng), calls=3)
   gemm = sum(ms for name, ms in prof['by_name_ms'].items()
              if re.search(r'gemm|xmma|cutlass|sm90', name))
@@ -6232,6 +6386,8 @@ def _encoder_phase():
        f'bitwise over two steps at dropout 0.1; a step\'s peak over the '
        f'resident state {out["peak_bytes"] / 2 ** 30:.3f} GiB, with remat '
        f'{out["peak_bytes_remat"] / 2 ** 30:.3f} GiB')
+  # 23g: the dense kernel at the train and serving shapes (row 11).
+  out['dense'] = _dense_phase()
   # 23c: the sparse token step.
   out['sparse'], lazy, efs = _encoder_sparse(pristine, batches, loss_fn)
   out['sparse_graph'] = _graph_vs_eager_22(
@@ -6239,7 +6395,7 @@ def _encoder_phase():
           _encoder_copy(pristine), state_lib.adam(ENC_LR), device='cuda',
           sparse_tx=lazy()),
       steps.make_sparse_train_step(loss_fn, efs, device='cuda'), batches,
-      True, {'scatter_rows_multi': 1})
+      True, {'scatter_rows_multi': 1, 'dense_gemm': 18 * ENC_LAYERS})
   out['warm_start'] = _encoder_warm_start(pristine)
   del pristine, batches
   gc.collect()
@@ -7576,6 +7732,7 @@ def main():
   from ranking_tpu_torch.data import dataset
   from ranking_tpu_torch.models import layers
   from ranking_tpu_torch.ops.cuda import build
+  from ranking_tpu_torch.ops.cuda import dense
   from ranking_tpu_torch.ops.cuda import fused_bn
   from ranking_tpu_torch.ops.cuda import pairwise
   from ranking_tpu_torch.ops.cuda import rows
@@ -7595,12 +7752,14 @@ def main():
 
   # Phase 2: build, one nvcc per source, side by side.
   t0 = time.perf_counter()
-  sources = ['sort', 'fused_bn_fwd', 'fused_bn_bwd', 'pairwise', 'rows']
+  sources = ['sort', 'fused_bn_fwd', 'fused_bn_bwd', 'pairwise', 'rows',
+             'dense']
   build.compile_libraries(sources)
   cuda_sort._kernel()
   fused_bn.build_kernels()
   pairwise.build_kernels()
   rows.build_kernels()
+  dense.build_kernels()
   build_s = time.perf_counter() - t0
   _log(f'build: {len(sources)} kernel sources in {build_s:.2f} s ('
        + ', '.join(f'{k} {v:.1f} s' for k, v in build.BUILD_SECONDS.items())
@@ -7609,7 +7768,7 @@ def main():
   # `wgmma` instructions (HGMMA in the machine code) of each library, and
   # its kernels' registers and spills from ptxas.
   hgmma = {}
-  for source in ('fused_bn_fwd', 'fused_bn_bwd'):
+  for source in ('fused_bn_fwd', 'fused_bn_bwd', 'dense'):
     path = build.library_path(source)
     hgmma[source] = _sass_count(path, 'HGMMA')
     if hgmma[source] == 0:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ranking_tpu_torch.ops.cuda import dense
 from ranking_tpu_torch.ops.cuda import fused_bn
 from ranking_tpu_torch.parallel import comm
 from ranking_tpu_torch.utils import list_ops
@@ -340,12 +341,21 @@ class DenseGeneral(nn.Module):
     group = None if dim is None else self.__dict__['mesh'].model_group
     if dim is not None and dim >= self.n_in and not copied:
       x = comm.copy(x, group)
+    row_parallel = dim is not None and dim < self.n_in
+    kernel, bias = self.kernel.to(x.dtype), self.bias.to(x.dtype)
+    k = math.prod(kernel.shape[:self.n_in])
+    if dense.takes(x.device.type, x.dtype, x.numel() // max(k, 1), k,
+                   kernel.numel() // max(k, 1)):
+      # Float32 on the card: the tensor-core kernel, bias in its epilogue
+      # (after the sum where the product is row-parallel).
+      y = dense.dense_general(x, kernel, None if row_parallel else bias,
+                              self.n_in)
+      return comm.reduce(y, group) + bias if row_parallel else y
     dims = list(range(x.ndim - self.n_in, x.ndim))
-    y = torch.tensordot(x, self.kernel.to(x.dtype),
-                        dims=(dims, list(range(self.n_in))))
-    if dim is not None and dim < self.n_in:
+    y = torch.tensordot(x, kernel, dims=(dims, list(range(self.n_in))))
+    if row_parallel:
       y = comm.reduce(y, group)
-    return y + self.bias.to(x.dtype)
+    return y + bias
 
   def column_parallel(self) -> bool:
     dim = self.__dict__.get('model_shards', {}).get('kernel')

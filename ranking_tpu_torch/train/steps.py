@@ -443,10 +443,11 @@ def state_addresses(state: TrainState) -> Tuple[int, ...]:
 
 def kernel_launch_counts() -> Dict[str, int]:
   """The launch count of every kernel wrapper of the port, by name."""
-  from ranking_tpu_torch.ops.cuda import fused_bn, pairwise, rows
+  from ranking_tpu_torch.ops.cuda import dense, fused_bn, pairwise, rows
   from ranking_tpu_torch.ops.cuda import sort as cuda_sort
   wrappers = ((cuda_sort.sorted_values_and_ranks,) + fused_bn.KERNEL_WRAPPERS
-              + pairwise.KERNEL_WRAPPERS + rows.KERNEL_WRAPPERS)
+              + pairwise.KERNEL_WRAPPERS + rows.KERNEL_WRAPPERS
+              + dense.KERNEL_WRAPPERS)
   return {fn.__name__: fn.launches for fn in wrappers}
 
 

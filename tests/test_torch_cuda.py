@@ -9,8 +9,10 @@ conftest is left out):
 import pytest
 import torch
 
+from ranking_tpu_torch.models import encoder
 from ranking_tpu_torch.ops import lambda_weights as lw
 from ranking_tpu_torch.ops import losses
+from ranking_tpu_torch.ops.cuda import dense
 from ranking_tpu_torch.ops.cuda import fused_bn
 from ranking_tpu_torch.ops.cuda import pairwise
 from ranking_tpu_torch.ops.cuda import rows
@@ -638,3 +640,124 @@ def test_graphed_loss_zoo_steps_equal_eager_bitwise(dev, key, random):
   for (name, a), b in zip(state.model.state_dict().items(),
                           twin.model.state_dict().values()):
     assert torch.equal(a, b), name
+
+
+# The encoder's products (csrc/dense.cu): forward (bias in the epilogue),
+# input gradient and weight gradient at BERT-base's train shapes (4,096
+# rows of 768 and 3,072), and the forward at serving's 16,384 rows (the
+# 128-document bucket: 128 candidates of 128 tokens).
+DENSE_CASES = [(kind, m, k, n) for m, k, n in ((4096, 768, 768),
+                                               (4096, 768, 3072),
+                                               (4096, 3072, 768))
+               for kind in ('forward', 'input_grad', 'weight_grad')] + [
+                   ('forward', 16384, k, n)
+                   for k, n in ((768, 768), (768, 3072), (3072, 768))]
+
+
+@pytest.mark.parametrize('kind,m,k,n', DENSE_CASES)
+def test_dense_kernel_against_float64(dev, kind, m, k, n):
+  """The kernel's three TF32 passes keep about 22 bits: its largest error
+  against a float64 product, over the largest output, stays under 2^-19
+  (a single TF32 pass errs by some 2^-11 a product) and under cuBLAS
+  float32's own at the same shape (1e-6 or so at these depths: sums of
+  thousands of terms), with headroom of 1.5x for the draw."""
+  gen = torch.Generator(device=dev).manual_seed(m + k + n)
+  x = torch.randn(m, k, device=dev, generator=gen)
+  w = torch.randn(k, n, device=dev, generator=gen) * k ** -0.5
+  b = torch.randn(n, device=dev, generator=gen)
+  dy = torch.randn(m, n, device=dev, generator=gen)
+  before = dense.dense_gemm.launches
+  if kind == 'forward':
+    got, lib = dense._forward(x, w, b), torch.addmm(b, x, w)
+    want = torch.addmm(b.double(), x.double(), w.double())
+  elif kind == 'input_grad':
+    got, lib = dense._input_grad(dy, w), dy @ w.t()
+    want = dy.double() @ w.double().t()
+  else:
+    got, lib = dense._weight_grad(x, dy), x.t() @ dy
+    want = x.double().t() @ dy.double()
+    # The other orientation (dW^T written transposed) on the same operands.
+    other = dense._weight_grad(dy, x)
+    err_other = ((other.double() - want.t()).abs().max()
+                 / want.abs().max()).item()
+    assert err_other < 2.0 ** -19
+  torch.cuda.synchronize()
+  assert dense.dense_gemm.launches - before == (2 if kind == 'weight_grad'
+                                                else 1)
+  scale = want.abs().max()
+  err = ((got.double() - want).abs().max() / scale).item()
+  err_lib = ((lib.double() - want).abs().max() / scale).item()
+  assert err < 2.0 ** -19, (err, err_lib)
+  assert err <= 1.5 * err_lib, (err, err_lib)
+
+
+def test_dense_kernel_bias_is_checked_and_cast(dev):
+  """The kernel reads its bias as float32 of N: ``dense_gemm`` refuses any
+  other, and ``DenseGeneral`` casts a bfloat16 module's bias for a float32
+  input as the ``tensordot`` path does."""
+  gen = torch.Generator(device=dev).manual_seed(9)
+  x = torch.randn(4096, 768, device=dev, generator=gen)
+  w = torch.randn(768, 768, device=dev, generator=gen) * 768 ** -0.5
+  out = torch.empty(4096, 768, device=dev)
+  planes = dense.split_planes(w, True)
+  for bad in (torch.zeros(767, device=dev),
+              torch.zeros(768, device=dev, dtype=torch.bfloat16),
+              torch.zeros(768)):
+    with pytest.raises(ValueError, match='bias'):
+      dense.dense_gemm(x, False, planes, bad, out, False, 4096, 768, 768)
+  from ranking_tpu_torch.models import layers
+  layer = layers.DenseGeneral([768], [768], torch.Generator().manual_seed(9))
+  with torch.no_grad():
+    layer.bias.normal_(generator=torch.Generator().manual_seed(10))
+  layer = layer.to(dev, torch.bfloat16)
+  before = dense.dense_gemm.launches
+  got = layer(x)
+  assert dense.dense_gemm.launches - before == 1
+  want = x.double() @ layer.kernel.double() + layer.bias.double()
+  err = ((got.double() - want).abs().max() / want.abs().max()).item()
+  assert err < 2.0 ** -19
+
+
+def test_graphed_encoder_step_equals_eager_bitwise(dev):
+  """K replays of a captured BERT-width train step == K eager steps bit for
+  bit, with every block product through the kernel: 18 launches a layer
+  (6 products, forward and two gradients) recorded at capture."""
+  import copy
+  from ranking_tpu_torch.data import batch as batch_lib
+  from ranking_tpu_torch.data import dataset
+  from ranking_tpu_torch.models import scorers
+  from ranking_tpu_torch.ops import loss_registry
+  from ranking_tpu_torch.train import state as state_lib
+  from ranking_tpu_torch.train import steps
+  gen = torch.Generator().manual_seed(8)
+  layers_, b, l, t = 2, 4, 4, 128   # 2,048 rows: the rule takes them
+
+  def batches(k):
+    out = []
+    for _ in range(k):
+      labels = torch.randint(0, 3, (b, l), generator=gen).float()
+      ids = torch.randint(1000, 5000, (b, l, t), generator=gen)
+      ids[..., 100:] = -1
+      out.append(dataset.flatten_examples(batch_lib.batch_from_labels(
+          labels, examples={'input_ids': ids})))
+    return steps.stack_batches(out).to(dev)
+
+  model = scorers.RankingModel(encoder.EncoderScorer(encoder.TransformerEncoder(
+      5000, 768, layers_, 12, 3072, 128, dropout=0.0, generator=gen),
+      dropout=0.0, generator=gen))
+  step = steps.make_train_step(loss_registry.make_loss_fn('softmax_loss'),
+                               device=dev)
+  state = state_lib.create_train_state(model, state_lib.adam(1e-4),
+                                       device=dev)
+  graphed = steps.make_multi_step(step, device=dev)
+  eager = steps.make_multi_step(step, device=dev, eager=True)
+  state, _ = graphed(state, batches(4), None)
+  assert graphed.captured_launches.get('dense_gemm') == 18 * layers_
+  twin = copy.deepcopy(state)
+  run = batches(4)
+  state, got = graphed(state, run, None)
+  twin, want = eager(twin, run, None)
+  assert torch.equal(got['loss'], want['loss'])
+  for (name, a), w in zip(state.model.state_dict().items(),
+                          twin.model.state_dict().values()):
+    assert torch.equal(a, w), name

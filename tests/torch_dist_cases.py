@@ -301,6 +301,43 @@ def case_tp_step(inp, mesh_spec):
           'clipped_one': run(on_mesh=False, clip=0.05)}
 
 
+def case_dense_tp(inp, mesh_spec):
+  """A transformer block under ENCODER_TP_RULES with every DenseGeneral
+  sent through ``ops.cuda.dense``'s autograd function (its plain path on
+  the CPU), as the routing rule sends the encoder's products on the card:
+  the block's output, the input's gradient and the whole parameters'
+  gradients, and how many products went through the function."""
+  from unittest import mock
+  from ranking_tpu_torch import parallel
+  from ranking_tpu_torch.models import encoder as enc
+  from ranking_tpu_torch.ops.cuda import dense
+  from ranking_tpu_torch.parallel import comm
+  from ranking_tpu_torch.parallel import mesh as mesh_lib
+  mesh = _mesh(mesh_spec)
+  model = torch.nn.Module()
+  model.block_0 = enc.TransformerBlock(**inp['config'], dropout=0.0)
+  model.load_state_dict({k: _t(v) for k, v in inp['state'].items()})
+  parallel.shard_module(model, mesh, parallel.ENCODER_TP_RULES)
+  calls = []
+  general = dense.dense_general
+
+  def counted(*args):
+    calls.append(1)
+    return general(*args)
+
+  x = _t(inp['x']).requires_grad_()
+  with mock.patch.object(dense, 'takes', lambda *args: True), \
+       mock.patch.object(dense, 'dense_general', counted):
+    y = model.block_0(x, _t(inp['mask']))
+    (y * _t(inp['cot'])).sum().backward()
+  dims = mesh_lib.sharded_dims(model)
+  grads = {k: _np(comm.all_gather(p.grad, mesh.model_group, dims[k])
+                  if k in dims else p.grad)
+           for k, p in model.named_parameters()}
+  return {'y': _np(y), 'dx': _np(x.grad), 'grads': grads,
+          'calls': len(calls), 'sharded': sorted(dims)}
+
+
 # --------------------------------------------------------------- pipeline
 
 
@@ -441,6 +478,7 @@ CASES = {
     'sparse_adagrad': case_sparse_step,
     'lazy_dense': case_sparse_step,
     'tp': case_tp_step,
+    'dense_tp': case_dense_tp,
     'pipeline': case_pipeline,
     'pipeline_tp': case_pipeline_tp,
     'pipeline_idle': case_pipeline_idle,
